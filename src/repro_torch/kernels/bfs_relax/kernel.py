@@ -6,11 +6,10 @@ offsets ``row_ptr`` (see the source's header note for the design and its
 bound).  It replaces the TPU kernel ``relax_kernel_blockmap`` of
 ``repro/kernels/bfs_relax/kernel.py``.
 
-The shared library is compiled with ``nvcc`` for ``sm_90a`` at first use,
-into ``build/`` beside this file (listed in ``.gitignore``), named by a hash
-of the source and flags so an edited source never loads a stale build.  It
-has a plain C interface and is loaded with ``ctypes``.  A failed build
-raises ``KernelBuildError``; nothing falls back to the plain version.
+The shared library is compiled by ``kernels/build.py`` (``nvcc`` for
+``sm_90a`` at first use, into ``build/`` beside this file, named by a hash
+of the source and flags) and loaded with ``ctypes``.  A failed build raises
+``KernelBuildError``; nothing falls back to the plain version.
 
 ``relax_rowptr`` is the launch wrapper: it takes CUDA tensors only, checks
 them, allocates the output, launches on the current stream and counts its
@@ -22,23 +21,19 @@ launches in ``relax_rowptr.launches``, and per template instantiation
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.build import (  # noqa: F401  (KernelBuildError re-exported)
+    CudaKernel,
+    KernelBuildError,
+    check_grid,
+)
+
 _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "csrc" / "relax.cu"
 BUILD_DIR = _HERE / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 _THREADS = 256  # must match kThreads in csrc/relax.cu
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1}
 _REDUCE_CODE = {"min": 0, "sum": 1}
@@ -48,66 +43,7 @@ VARIANTS = tuple(
 )
 
 
-class KernelBuildError(RuntimeError):
-    """``nvcc`` is missing or refused the kernel source."""
-
-
-def find_nvcc() -> str | None:
-    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``, else the
-    toolkit's default install path; None when none exists."""
-    candidates = []
-    if os.environ.get("CUDA_HOME"):
-        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
-    on_path = shutil.which("nvcc")
-    if on_path:
-        candidates.append(on_path)
-    candidates.append("/usr/local/cuda/bin/nvcc")
-    for c in candidates:
-        if os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    return None
-
-
-def build_library(
-    source: Path = SOURCE, build_dir: Path = BUILD_DIR, nvcc: str | None = None
-) -> tuple[Path, str]:
-    """Compile ``source`` into a shared library (or reuse the build of the
-    same source and flags); returns ``(path, nvcc's output)``."""
-    nvcc = nvcc or find_nvcc()
-    if nvcc is None or not os.path.isfile(nvcc):
-        raise KernelBuildError(
-            f"nvcc not found (looked at $CUDA_HOME, PATH and /usr/local/cuda); "
-            f"cannot build {source.name}"
-        )
-    text = Path(source).read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    build_dir = Path(build_dir)
-    lib = build_dir / f"lib{Path(source).stem}-{digest}.so"
-    if lib.exists():
-        return lib, ""
-    build_dir.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, str(source)],
-            capture_output=True, text=True, timeout=900,
-        )
-        if proc.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed on {source} (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, proc.stdout + proc.stderr
-
-
-class RelaxKernel:
+class RelaxKernel(CudaKernel):
     """The launch wrapper of ``csrc/relax.cu`` (see the module docstring).
 
     ``launches`` counts kernel launches and nothing else, and
@@ -115,22 +51,13 @@ class RelaxKernel:
     ``build_seconds`` and ``build_log`` record the first-use build.
     """
 
-    def __init__(self, source: Path = SOURCE, build_dir: Path = BUILD_DIR):
-        self.source = Path(source)
-        self.build_dir = Path(build_dir)
-        self.launches = 0
-        self.variant_launches = dict.fromkeys(VARIANTS, 0)
-        self.build_seconds: float | None = None
-        self.build_log = ""
-        self._lib: ctypes.CDLL | None = None
+    error_fn = "relax_error_string"
 
-    def load(self, nvcc: str | None = None) -> ctypes.CDLL:
-        """Build (first use only) and bind the library."""
-        if self._lib is not None:
-            return self._lib
-        t0 = time.perf_counter()
-        path, log = build_library(self.source, self.build_dir, nvcc)
-        lib = ctypes.CDLL(str(path))
+    def __init__(self, source: Path = SOURCE, build_dir: Path = BUILD_DIR):
+        super().__init__(source, build_dir)
+        self.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+    def _bind(self, lib: ctypes.CDLL) -> None:
         fn = lib.relax_rowptr_launch
         fn.argtypes = [
             ctypes.c_int, ctypes.c_int,
@@ -139,12 +66,6 @@ class RelaxKernel:
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        lib.relax_error_string.argtypes = [ctypes.c_int]
-        lib.relax_error_string.restype = ctypes.c_char_p
-        self.build_seconds = time.perf_counter() - t0
-        self.build_log = log
-        self._lib = lib
-        return lib
 
     def __call__(
         self,
@@ -191,7 +112,7 @@ class RelaxKernel:
         if out.numel() == 0:
             return out
         blocks = -(-(s * n * 32) // _THREADS)
-        assert blocks >= 1, "relax kernel: empty launch grid"
+        check_grid((blocks,), "relax kernel")
         lib = self.load()
         with torch.cuda.device(base.device):
             stream = torch.cuda.current_stream(base.device).cuda_stream
@@ -200,9 +121,7 @@ class RelaxKernel:
                 row_ptr.data_ptr(), cand.data_ptr(), base.data_ptr(),
                 out.data_ptr(), s, n, e, stream,
             )
-        if rc != 0:
-            msg = lib.relax_error_string(rc).decode()
-            raise RuntimeError(f"relax kernel launch failed: {msg} (cudaError {rc})")
+        self._check_rc(rc, "relax kernel")
         self.launches += 1
         self.variant_launches[variant] += 1
         return out

@@ -32,25 +32,11 @@ import torch
 from repro_torch.graph.structs import row_ptr_for, side_cache
 from repro_torch.kernels.bfs_relax.kernel import relax_rowptr
 from repro_torch.kernels.bfs_relax.ref import relax_reference
+from repro_torch.kernels.build import BACKENDS, validate_backend
 
-RELAX_BACKENDS = ("cuda", "torch")
-
-
-def validate_backend(backend: str | None, device) -> str:
-    """Resolve an engine ``backend`` for ``device``: ``None`` is the
-    device's default (``"cuda"`` on a card, ``"torch"`` on the CPU), and
-    ``"cuda"`` on a CPU device raises."""
-    device = torch.device(device)
-    if backend is None:
-        return "cuda" if device.type == "cuda" else "torch"
-    if backend not in RELAX_BACKENDS:
-        raise ValueError(f"backend must be one of {RELAX_BACKENDS}, got {backend!r}")
-    if backend == "cuda" and device.type != "cuda":
-        raise ValueError(
-            f"backend='cuda' runs the CUDA kernel and needs a CUDA device, "
-            f"got {device}"
-        )
-    return backend
+#: the backend policy lives in ``kernels/build.py``; these names stay here
+#: for the engine and for existing imports
+RELAX_BACKENDS = BACKENDS
 
 
 def _identity_scalar(reduce: str, dtype):

@@ -1,4 +1,5 @@
-"""The CUDA relax kernel on the card, against its plain version.
+"""The CUDA kernels on the card, against their plain versions: relax,
+segment sum and flash attention.
 
 Every test here needs an NVIDIA card with ``nvcc`` and skips with a reason
 elsewhere.  The file imports neither JAX nor the JAX package, so it runs on
@@ -6,8 +7,14 @@ a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: ``min`` is bit-exact; ``sum`` is ``rtol=1e-5, atol=1e-9``
-(both sum float32 in float64, in different orders).
+Tolerances.  Relax: ``min`` is bit-exact; ``sum`` is ``rtol=1e-5,
+atol=1e-9`` (both sum float32 in float64, in different orders).  Segment
+sum: per segment, ``|kernel - plain| <= 1e-5 * sum(|vals|)`` over the
+segment (both sum in float32, in different orders; an empty segment is
+exactly 0).  Flash attention: ``1e-5`` in float32 (both in float32 FMAs,
+TF32 off), ``2e-2`` in bfloat16 (the kernel rounds P to bfloat16 for the
+PV product, as the TPU kernel does), the JAX tests' tolerances; bfloat16
+also within ``bf16_tolerance_ratio``'s bound, which scales with each row.
 """
 
 import numpy as np
@@ -23,6 +30,19 @@ from repro_torch.graph.traversal import TraversalEngine, reference_pagerank
 from repro_torch.kernels.bfs_relax import ops
 from repro_torch.kernels.bfs_relax.kernel import relax_rowptr
 from repro_torch.kernels.bfs_relax.ref import relax_reference
+from repro_torch.kernels.flash_attention import (
+    attention_rows,
+    bf16_tolerance_ratio,
+    flash_attention,
+    flash_fwd,
+    reference_attention,
+)
+from repro_torch.kernels.segment_sum import (
+    reference_segment_sum,
+    segment_sum_sorted,
+    sorted_segment_sum,
+)
+from repro_torch.kernels.segment_sum.kernel import segment_levels
 
 SHAPES = {
     # name: (S, n, e)
@@ -43,6 +63,7 @@ def cuda_device():
             "needs an NVIDIA card and nvcc; on the card run "
             "`PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`"
         )
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -146,3 +167,111 @@ def test_engine_on_cuda_matches_torch_backend(cuda_device, name):
                 np.testing.assert_allclose(row, exact, rtol=1e-5, atol=1e-9)
         else:
             np.testing.assert_array_equal(a, b, err_msg=field)
+
+
+SEG_SHAPES = {
+    # name: (E, N, D, vals dtype, ids dtype, skew)
+    "e0": (0, 64, 16, torch.float32, torch.int32, "uniform"),
+    "n_lt_8": (50, 5, 16, torch.float32, torch.int32, "uniform"),
+    "single_edge": (1, 40, 16, torch.float32, torch.int32, "uniform"),
+    "d10": (5000, 300, 10, torch.float32, torch.int32, "uniform"),
+    "d33": (5000, 300, 33, torch.float32, torch.int64, "powerlaw"),
+    "d75": (5000, 300, 75, torch.float32, torch.int32, "powerlaw"),
+    "bf16": (4096, 256, 64, torch.bfloat16, torch.int32, "uniform"),
+    "bf16_d10": (4096, 256, 10, torch.bfloat16, torch.int64, "powerlaw"),
+    "out_of_range": (3000, 100, 32, torch.float32, torch.int32, "out_of_range"),
+    "hub_levels": (1_000_000, 1000, 32, torch.float32, torch.int32, "powerlaw"),
+}
+
+
+def _seg_inputs(e, n, d, vdtype, idtype, skew, device, seed):
+    rng = np.random.default_rng(seed)
+    if skew == "powerlaw":
+        raw = rng.zipf(1.5, e) % n
+    elif skew == "out_of_range":
+        raw = rng.integers(-5, n + 5, e)
+    else:
+        raw = rng.integers(0, n, e)
+    ids = torch.as_tensor(np.sort(raw), device=device).to(idtype)
+    vals = torch.as_tensor(rng.standard_normal((e, d)).astype(np.float32), device=device)
+    return ids, vals.to(vdtype)
+
+
+def _assert_seg_close(out, ids, vals, n):
+    ref = reference_segment_sum(ids, vals, n)
+    scale = reference_segment_sum(ids, vals.float().abs(), n)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    err = (out - ref).abs()
+    assert bool((err <= 1e-5 * scale).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(SEG_SHAPES))
+def test_segment_sum_kernel_matches_plain_version(cuda_device, shape):
+    e, n, d, vdtype, idtype, skew = SEG_SHAPES[shape]
+    ids, vals = _seg_inputs(e, n, d, vdtype, idtype, skew, cuda_device, seed=e + d)
+    before = segment_sum_sorted.launches
+    out = sorted_segment_sum(ids, vals, n, assume_sorted=True)
+    again = sorted_segment_sum(ids, vals, n, assume_sorted=True)
+    torch.cuda.synchronize()
+    levels = len(segment_levels(e)) if e else 0
+    assert segment_sum_sorted.launches == before + 2 * levels
+    assert torch.equal(out, again)  # no atomics: the same bits every run
+    _assert_seg_close(out, ids, vals, n)
+
+
+@pytest.mark.cuda
+def test_segment_sum_unsorted_ids_on_cuda(cuda_device):
+    ids, vals = _seg_inputs(7000, 90, 24, torch.float32, torch.int32, "powerlaw",
+                            cuda_device, seed=1)
+    perm = torch.randperm(7000, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    out = sorted_segment_sum(ids[perm], vals[perm], 90)
+    _assert_seg_close(out, ids, vals, 90)
+    torch.testing.assert_close(
+        out, sorted_segment_sum(ids[perm], vals[perm], 90, backend="torch"),
+        atol=1e-4, rtol=1e-4,
+    )
+
+
+FLASH_SHAPES = {
+    # name: (B, S, H, Hk, d, causal, window, dtype)
+    "f32_gqa": (2, 256, 4, 2, 64, True, None, torch.float32),
+    "f32_d128": (1, 128, 2, 2, 128, True, None, torch.float32),
+    "f32_window": (2, 256, 4, 4, 64, True, 64, torch.float32),
+    "f32_ragged_mqa_d48": (1, 160, 2, 1, 48, True, None, torch.float32),
+    "f32_window_128": (1, 512, 8, 2, 64, True, 128, torch.float32),
+    "f32_ragged_noncausal": (1, 160, 2, 1, 64, False, None, torch.float32),
+    "f32_noncausal_window": (1, 200, 2, 1, 64, False, 64, torch.float32),
+    "bf16_gqa": (2, 256, 4, 2, 64, True, None, torch.bfloat16),
+    "bf16_d96": (1, 384, 6, 3, 96, True, None, torch.bfloat16),
+    "bf16_mqa_d128": (1, 700, 8, 1, 128, True, None, torch.bfloat16),
+    "bf16_window": (1, 1000, 4, 2, 128, True, 256, torch.bfloat16),
+    "bf16_window_mid_tile": (1, 1000, 8, 2, 128, True, 200, torch.bfloat16),
+    "bf16_window_65": (2, 700, 6, 3, 96, True, 65, torch.bfloat16),
+    "bf16_ragged_noncausal": (1, 160, 2, 1, 64, False, None, torch.bfloat16),
+    "bf16_noncausal_window": (1, 200, 2, 1, 64, False, 64, torch.bfloat16),
+    "bf16_odd_d33": (1, 130, 2, 2, 33, True, None, torch.bfloat16),
+    "bf16_d16": (2, 100, 2, 1, 16, False, 20, torch.bfloat16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
+def test_flash_kernel_matches_plain_version(cuda_device, shape):
+    b, s, h, hk, d, causal, window, dtype = FLASH_SHAPES[shape]
+    rng = np.random.default_rng(s + d)
+    q, k, v = (
+        torch.as_tensor(rng.standard_normal(sh).astype(np.float32), device=cuda_device).to(dtype)
+        for sh in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d))
+    )
+    before = flash_fwd.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    ref = reference_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        exact = attention_rows(q, k, v, 0, s, causal=causal, window=window)
+        assert bf16_tolerance_ratio(out, exact) <= 1.0
