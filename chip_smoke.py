@@ -16,11 +16,13 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
   3. flash_attention -- ``flash_attention`` on one Mixtral-8x22B attention
                 layer at a 32k prefill (B=1, S=32768, H=48, Hk=8, d=128,
                 causal, window 4096, bfloat16) and a causal 8k case (H=32,
-                Hk=8); launch counts as above.  Held against the chunked
-                plain version on the first, a middle and the last 512 rows,
-                at 2e-2 and at a bound scaled to each row's size (a window
-                64 keys short must fail that bound), then small cases;
-                timed beside its bound and SDPA.
+                Hk=8); launch counts as above, and the TMA/wgmma kernel
+                (``"bfloat16-wgmma"``) must have run.  Held against the
+                chunked plain version on the first, a middle and the last
+                512 rows, at 2e-2 and at a bound scaled to each row's size
+                (a window 64 keys short must fail that bound), then small
+                cases (ragged S among them), each naming the kernel it
+                took; timed beside its bound and SDPA.
   4. graph   -- ``rmat_graph(22, 8, seed=42)`` (about 4.2 M vertices and
                 68 M directed edges, SNAP soc-LiveJournal1's size) split by
                 ``bfs_grow_partition(..., 8, seed=1)``; host build times.
@@ -29,10 +31,11 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 timed as in phase 2.
   6. kernel  -- the CUDA relax kernel (every template instantiation the
                 main path runs) held against its plain PyTorch version at the
-                main path's shapes and at the degenerate shapes (no edges,
-                n < 8, one edge): min bit-exact, sum within rtol=1e-5,
-                atol=1e-9.  Times by CUDA events beside the bound and one
-                ``scatter_reduce`` call.
+                main path's shapes (the local and the remote layout) and at
+                the degenerate shapes (no edges, n < 8, one edge): min
+                bit-exact, sum within rtol=1e-5, atol=1e-9.  Times by CUDA
+                events, one call at a time and back to back, beside the
+                bound and one ``scatter_reduce`` call.
   7. oracle  -- BFS, SSSP, WCC and PageRank on a small graph on the card,
                 held against the port's numpy oracles.
   8. slice   -- the main path: BFS from 4 sources, WCC and 20 PageRank
@@ -47,7 +50,9 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 delta = 60 s; ``predict_time_function`` gives the
                 metagraph's a-priori plan.
   10. profile -- one more BFS traversal under ``torch.profiler``: the
-                card's busy share and the kernels that take its time.
+                card's busy share, the kernels that take its time, and the
+                relax reduction's three kernels (partition, reduction,
+                fix-up) found by name.
   11. relax_entries -- the two min-only entries (``bfs_relax_csr``,
                 ``bfs_relax``) at S=1 over the local edges, each against the
                 ``torch`` backend, timed beside the kernel alone.
@@ -117,6 +122,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_fwd,
     reference_attention,
 )
+from repro_torch.kernels.flash_attention.kernel import variant_for  # noqa: E402
 from repro_torch.kernels.segment_sum import (  # noqa: E402
     reference_segment_sum,
     segment_sum_sorted,
@@ -146,6 +152,8 @@ PAGERANK_RTOL, PAGERANK_ATOL = 1e-5, 1e-9
 
 KERNEL_SOURCE = "src/repro_torch/kernels/bfs_relax/csrc/relax.cu"
 KERNEL_REPLACES = "src/repro/kernels/bfs_relax/kernel.py:138"
+#: the relax reduction's kernels in csrc/relax.cu, as the profiler names them
+RELAX_KERNEL_SYMBOLS = ("relax_partition_kernel", "relax_rowptr_kernel", "relax_fixup_kernel")
 SEG_SOURCE = "src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu"
 SEG_REPLACES = "src/repro/kernels/segment_sum/kernel.py:61"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
@@ -180,7 +188,8 @@ FLASH_CAUSAL = {"b": 1, "s": 8192, "h": 32, "hk": 8, "d": 128, "causal": True, "
 FLASH_BF16_TOL, FLASH_F32_TOL = 2e-2, 1e-5
 FLASH_CHECK_ROWS = 512
 #: the control: the window case run with a window this many keys short
-#: (one key tile) must fail the scaled bound on the rows it changes
+#: (half a 128-key tile) must fail the scaled bound on the rows it changes;
+#: it runs where the window is shorter than S (not in a cut run)
 FLASH_CONTROL_SHORT = 64
 #: the template instantiations the main path runs, and the program each
 #: serves there: (variant, reduce, dtype, program name)
@@ -226,6 +235,22 @@ def _median_ms(fn, reps: int) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return float(np.median(times))
+
+
+def _back_to_back_ms(fn, reps: int) -> float:
+    """Mean time of ``reps`` calls enqueued back to back between two CUDA
+    events, after one warm-up call: the host's per-call work overlaps the
+    card's, so a short kernel is not charged the wait for its own launch."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def _bound(s: int, n: int, e: int) -> tuple[float, str]:
@@ -547,6 +572,11 @@ def _sdpa_ms(q, k, v, cfg: dict) -> tuple[float | None, str]:
     return ms, f"SDPA memory-efficient backend, boolean window mask, kv heads repeated: {note}"
 
 
+def _flash_variant(q, k, v) -> str:
+    """The kernel ``flash_attention`` picks for these inputs."""
+    return variant_for(q.shape[-1], q.dtype, all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
 def _flash_small_cases(device, seed: int) -> list[dict]:
     """tests/test_kernels.py's FLASH_CASES, MQA, ragged non-causal S, an
     odd head dimension; each against the plain version on the card."""
@@ -571,6 +601,12 @@ def _flash_small_cases(device, seed: int) -> list[dict]:
         (1, 1000, 8, 2, 128, True, 200, torch.bfloat16),
         (2, 700, 6, 3, 96, True, 65, torch.bfloat16),
         (1, 333, 4, 2, 64, False, 100, torch.bfloat16),
+        # S not a multiple of the wgmma kernel's 128-row tiles; d = 40 pads
+        # to 64 in shared memory
+        (2, 333, 4, 2, 64, True, None, torch.bfloat16),
+        (1, 200, 4, 1, 128, False, None, torch.bfloat16),
+        (1, 129, 2, 1, 40, True, 50, torch.bfloat16),
+        (1, 1100, 4, 2, 96, False, 300, torch.bfloat16),
     )
     out = []
     for b, s, h, hk, d, causal, window, dtype in cases:
@@ -591,7 +627,8 @@ def _flash_small_cases(device, seed: int) -> list[dict]:
                f"flash {cfg} causal={causal} window={window} {dtype} disagrees "
                f"(max abs err {err}, scaled bound ratio {ratio})")
         out.append({**cfg, "causal": causal, "window": window, "dtype": str(dtype)[6:],
-                    "tol": tol, "max_abs_err": err, "tol_ratio": ratio})
+                    "variant": _flash_variant(q, k, v), "tol": tol, "max_abs_err": err,
+                    "tol_ratio": ratio})
     return out
 
 
@@ -621,8 +658,8 @@ def phase_flash(device, seed: int, scale: int) -> dict:
     variant_launches = dict(flash_fwd.variant_launches)
     peak = torch.cuda.max_memory_allocated()
     # -- end of the entry point's calls --
-    _check(launches > 0 and variant_launches["bfloat16"] > 0,
-           "flash_attention launched its bfloat16 kernel no time")
+    _check(launches > 0 and variant_launches["bfloat16-wgmma"] > 0,
+           "flash_attention launched its bfloat16 TMA/wgmma kernel no time")
 
     cases = []
     for name, cfg in mains.items():
@@ -632,7 +669,7 @@ def phase_flash(device, seed: int, scale: int) -> dict:
         _check(out.shape == q.shape and out.dtype == torch.bfloat16
                and bool(torch.isfinite(out).all()), f"flash {name}: not finite bf16 [B,S,H,d]")
         control = None
-        if cfg["window"] is not None:  # the same call, a key tile short
+        if cfg["window"] is not None and cfg["window"] < s:  # the same call, a window short
             control = flash_attention(q, k, v, causal=cfg["causal"],
                                       window=cfg["window"] - FLASH_CONTROL_SHORT)
         errs = []
@@ -663,6 +700,7 @@ def phase_flash(device, seed: int, scale: int) -> dict:
         lib_ms, lib_note = _sdpa_ms(q, k, v, cfg)
         cases.append({
             "case": name, "shape": cfg, "dtype": "bfloat16", "pairs": pairs,
+            "variant": _flash_variant(q, k, v),
             "max_abs_err": max(x["max_abs_err"] for x in errs), "checked_rows": errs,
             "ms": _median_ms(
                 lambda: flash_attention(q, k, v, causal=cfg["causal"], window=cfg["window"]), 5),
@@ -758,6 +796,8 @@ def _hold_case(name, variant, reduce, row_ptr, dst, cand, base, reps) -> dict:
     return {
         "case": name, "S": s, "n": n, "E": e, "max_abs_err": err,
         "ms": _median_ms(lambda: relax_rowptr(row_ptr, cand, base, reduce=reduce), reps),
+        "ms_back_to_back": _back_to_back_ms(
+            lambda: relax_rowptr(row_ptr, cand, base, reduce=reduce), 2 * reps),
         "plain_ms": _median_ms(lambda: relax_reference(dst, cand, base, reduce), reps),
         "library_ms": _median_ms(
             lambda: base.scatter_reduce(1, idx, cand, reduce=lib_reduce, include_self=True),
@@ -1066,12 +1106,19 @@ def phase_profile(pg, device, seed: int) -> dict:
             slot[1] += 1
     rows = [(k, ms, c) for k, (ms, c) in by_name.items()]
     busy_ms = sum(r[1] for r in rows)
-    relax_ms = sum(r[1] for r in rows if "relax_rowptr_kernel" in r[0])
+    # the relax reduction is three kernels: partition, reduction, fix-up
+    relax_parts = {
+        part: sum(r[1] for r in rows if part in r[0]) for part in RELAX_KERNEL_SYMBOLS
+    }
+    relax_ms = sum(relax_parts.values())
+    _check(relax_parts["relax_rowptr_kernel"] > 0,
+           "the profile found no relax_rowptr_kernel in the BFS traversal")
     rows.sort(key=lambda r: -r[1])
     return {
         "program": prog.name, "S": len(sources), "wall_ms": secs * 1e3,
         "device_busy_ms": busy_ms, "busy_share": busy_ms / (secs * 1e3),
         "relax_kernel_ms": relax_ms,
+        "relax_kernel_ms_by_part": relax_parts,
         "top": [{"name": k[:90], "ms": ms, "count": c} for k, ms, c in rows[:12]],
     }
 
@@ -1086,7 +1133,7 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
     entries = []
     for variant, _, _, prog in MAIN_VARIANTS:
         cases = checks[variant]
-        main = cases[0]
+        main, remote = cases[0], cases[1]
         entries.append({
             "name": f"relax_rowptr_kernel<{variant}>",
             "route": "cuda",
@@ -1101,12 +1148,16 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
             "library_ms": main["library_ms"],
             "program": prog,
             "shape": {"S": main["S"], "n": main["n"], "E": main["E"]},
+            "ms_back_to_back": main["ms_back_to_back"],
+            "main_remote": {k: remote[k] for k in ("S", "n", "E", "ms", "ms_back_to_back",
+                                                    "plain_ms", "bound_ms", "bound_by",
+                                                    "library_ms")},
             "held_against": [c["case"] for c in cases],
         })
     for name, source, replaces, phase, launches in (
         ("segment_sum_level_kernel", SEG_SOURCE, SEG_REPLACES, seg, seg["launches"]),
-        ("flash_fwd_bf16_kernel", FLASH_SOURCE, FLASH_REPLACES, flash,
-         flash["variant_launches"]["bfloat16"]),
+        ("flash_fwd_wgmma_kernel", FLASH_SOURCE, FLASH_REPLACES, flash,
+         flash["variant_launches"]["bfloat16-wgmma"]),
     ):
         main = phase["cases"][0]
         more = phase["cases"][1:] + (seg_livj["cases"] if phase is seg else [])
@@ -1123,6 +1174,7 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
             "bound_by": main["bound_by"],
             "library_ms": main["library_ms"],
             "library": main["library"],
+            **({"variant": main["variant"]} if "variant" in main else {}),
             "shape": main.get("shape") or {k: main[k] for k in ("E", "N", "D")},
             "case": main["case"],
             "cut": phase["cut"],

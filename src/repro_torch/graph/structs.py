@@ -101,8 +101,8 @@ def block_ranges_for(
 def row_ptr_for(dst: np.ndarray, n: int) -> np.ndarray:
     """``[n + 1]`` int32 CSR offsets of an ascending ``dst``: the edges that
     land on vertex ``v`` are ``[row_ptr[v], row_ptr[v + 1])``.  This is what
-    the CUDA relax kernel walks (one warp per ``(source, vertex)``) in place
-    of the TPU kernel's block map."""
+    the CUDA relax kernel splits by merge path in place of the TPU kernel's
+    block map."""
     dst = np.asarray(dst)
     if dst.shape[0] >= 2**31:
         raise ValueError(f"{dst.shape[0]} edges overflow int32 row offsets")

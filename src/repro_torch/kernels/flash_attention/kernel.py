@@ -2,13 +2,17 @@
 
 ``csrc/flash_attention.cu`` computes causal and/or sliding-window attention
 with GQA in one pass over the key tiles, with the streaming softmax state
-in float32 registers: bfloat16 on the tensor cores (``mma.sync``), float32
-with plain FMAs (see the source's header note).  It replaces the TPU kernel
+in float32 registers: bfloat16 on the tensor cores, by TMA and ``wgmma``
+where TMA can take the shape (``d % 8 == 0``, 16-byte aligned bases) and by
+``mma.sync`` elsewhere; float32 with plain FMAs (see the source's header
+note).  It replaces the TPU kernel
 ``flash_attention_kernel`` of ``repro/kernels/flash_attention/kernel.py``.
 
 ``flash_fwd`` is the launch wrapper: CUDA tensors only, checked; it
 allocates the output, launches on the current stream and counts launches
-in ``flash_fwd.launches`` and per dtype in ``flash_fwd.variant_launches``.
+in ``flash_fwd.launches`` and per kernel in ``flash_fwd.variant_launches``
+(``"bfloat16-wgmma"``, ``"bfloat16-mma"``, ``"float32"``); ``variant_for``
+is the choice, made by dtype and shape alone.
 The library is built by ``kernels/build.py`` at first use.
 """
 
@@ -25,15 +29,24 @@ _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "csrc" / "flash_attention.cu"
 BUILD_DIR = _HERE / "build"
 MAX_HEAD_DIM = 128  # kMaxD
-#: query rows per block of each variant (kBQ, kFQ in the source)
-_BLOCK_Q = {torch.bfloat16: 64, torch.float32: 32}
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-VARIANTS = ("float32", "bfloat16")
+#: query rows per block of each kernel (kWBQ, kBQ, kFQ in the source)
+_BLOCK_Q = {"bfloat16-wgmma": 128, "bfloat16-mma": 64, "float32": 32}
+_VARIANT_CODE = {"float32": 0, "bfloat16-mma": 1, "bfloat16-wgmma": 2}
+VARIANTS = ("float32", "bfloat16-wgmma", "bfloat16-mma")
 
 
-def launch_grid(b: int, s: int, h: int, dtype: torch.dtype) -> tuple[int, int, int]:
+def variant_for(d: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The kernel a call takes: bfloat16 goes to TMA and ``wgmma`` when
+    ``d % 8 == 0`` and q, k, v start on 16 bytes (``aligned``), to
+    ``mma.sync`` otherwise; float32 to its FMA kernel."""
+    if dtype == torch.float32:
+        return "float32"
+    return "bfloat16-wgmma" if d % 8 == 0 and aligned else "bfloat16-mma"
+
+
+def launch_grid(b: int, s: int, h: int, variant: str) -> tuple[int, int, int]:
     """``(query tiles, heads, batch)``: one block per query tile of a head."""
-    return -(-s // _BLOCK_Q[dtype]), h, b
+    return -(-s // _BLOCK_Q[variant]), h, b
 
 
 class FlashAttentionKernel(CudaKernel):
@@ -81,7 +94,7 @@ class FlashAttentionKernel(CudaKernel):
                 raise TypeError(f"flash kernel: {name} is {t.dtype}, q is {q.dtype}")
             if t.dim() != 4:
                 raise ValueError(f"flash kernel: {name} must be [B, S, heads, d]")
-        if q.dtype not in _DTYPE_CODE:
+        if q.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"flash kernel: dtype {q.dtype} unsupported")
         b, s, h, d = q.shape
         hk = k.shape[2]
@@ -101,16 +114,15 @@ class FlashAttentionKernel(CudaKernel):
         out = torch.empty_like(q)
         if out.numel() == 0:
             return out
-        check_grid(launch_grid(b, s, h, q.dtype), "flash kernel")
-        vec = int(
-            d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-        )
-        variant = str(q.dtype).removeprefix("torch.")
+        aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
+        variant = variant_for(d, q.dtype, aligned)
+        check_grid(launch_grid(b, s, h, variant), "flash kernel")
+        vec = int(d % 8 == 0 and aligned)
         lib = self.load()
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             rc = lib.flash_fwd_launch(
-                _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                _VARIANT_CODE[variant], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), b, s, h, hk, d, int(causal), window or 0, vec, stream,
             )
         self._check_rc(rc, "flash kernel")

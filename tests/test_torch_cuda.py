@@ -37,6 +37,7 @@ from repro_torch.kernels.flash_attention import (
     flash_fwd,
     reference_attention,
 )
+from repro_torch.kernels.flash_attention.kernel import variant_for
 from repro_torch.kernels.segment_sum import (
     reference_segment_sum,
     segment_sum_sorted,
@@ -45,12 +46,16 @@ from repro_torch.kernels.segment_sum import (
 from repro_torch.kernels.segment_sum.kernel import segment_levels
 
 SHAPES = {
-    # name: (S, n, e)
-    "ragged": (3, 257, 1023),
-    "hub": (2, 16, 600),
-    "e0": (3, 50, 0),
-    "n_lt_8": (3, 5, 9),
-    "single_edge": (3, 40, 1),
+    # name: (S, n, e, dst): "uniform" ids, zipf(1.5) "powerlaw" ids, or
+    # uniform ids plus 2**21 in-edges on vertex n // 3 ("hub_2m", spread
+    # over about a thousand tiles of the merge-path split)
+    "ragged": (3, 257, 1023, "uniform"),
+    "hub": (2, 16, 600, "uniform"),
+    "e0": (3, 50, 0, "uniform"),
+    "n_lt_8": (3, 5, 9, "uniform"),
+    "single_edge": (3, 40, 1, "uniform"),
+    "hub_2m": (2, 300_000, 1_000_000, "hub_2m"),
+    "powerlaw": (2, 500_000, 3_000_000, "powerlaw"),
 }
 VARIANTS = [("min", np.float32), ("min", np.int32), ("sum", np.float32)]
 VARIANT_IDS = ["min-f32", "min-i32", "sum-f32"]
@@ -67,9 +72,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(s, n, e, reduce, dtype, seed):
+def _inputs(s, n, e, reduce, dtype, seed, kind="uniform"):
     rng = np.random.default_rng(seed)
-    dst = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    if kind == "powerlaw":
+        dst = rng.zipf(1.5, e) % n
+    else:
+        dst = rng.integers(0, n, e)
+    if kind == "hub_2m":
+        dst = np.concatenate([dst, np.full(2**21, n // 3)])
+    dst = np.sort(dst).astype(np.int32)
+    e = len(dst)
     ident = ops._identity_scalar(reduce, dtype)
     if dtype == np.int32:
         cand = rng.integers(0, 1000, (s, e)).astype(np.int32)
@@ -96,18 +108,41 @@ def _assert_close(out, ref, reduce):
 @pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS)
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_cuda_kernel_matches_plain_version(cuda_device, shape, variant):
+    """Min bit-exact; sum within tolerance and the same bits on a second
+    run (no atomics)."""
     reduce, dtype = variant
-    s, n, e = SHAPES[shape]
-    dst, cand, base = _inputs(s, n, e, reduce, dtype, seed=n * 13 + e)
+    s, n, e, kind = SHAPES[shape]
+    dst, cand, base = _inputs(s, n, e, reduce, dtype, seed=n * 13 + e, kind=kind)
     on = dict(device=cuda_device)
     cand_t, base_t = torch.as_tensor(cand, **on), torch.as_tensor(base, **on)
     row_ptr = torch.as_tensor(row_ptr_for(dst, n), **on)
     before = relax_rowptr.launches
     out = relax_rowptr(row_ptr, cand_t, base_t, reduce=reduce)
+    again = relax_rowptr(row_ptr, cand_t, base_t, reduce=reduce)
     ref = relax_reference(torch.as_tensor(dst.astype(np.int64), **on), cand_t, base_t, reduce)
     torch.cuda.synchronize()
-    assert relax_rowptr.launches == before + 1
+    assert relax_rowptr.launches == before + 2
+    assert torch.equal(out, again)
     _assert_close(out, ref, reduce)
+
+
+@pytest.mark.cuda
+def test_relax_tile_split_follows_row_ptr_edits(cuda_device):
+    """The wrapper reuses a row_ptr's tile split across calls; an in-place
+    edit of row_ptr makes it split again."""
+    s, n, e = 2, 3000, 20000
+    dst, cand, base = _inputs(s, n, e, "min", np.float32, seed=11, kind="powerlaw")
+    on = dict(device=cuda_device)
+    cand_t, base_t = torch.as_tensor(cand, **on), torch.as_tensor(base, **on)
+    row_ptr = torch.as_tensor(row_ptr_for(dst, n), **on)
+    _assert_close(relax_rowptr(row_ptr, cand_t, base_t, reduce="min"),
+                  relax_reference(torch.as_tensor(dst.astype(np.int64), **on), cand_t, base_t,
+                                  "min"), "min")
+    dst2 = np.sort(np.random.default_rng(12).integers(0, n, e)).astype(np.int32)
+    row_ptr.copy_(torch.as_tensor(row_ptr_for(dst2, n), **on))
+    _assert_close(relax_rowptr(row_ptr, cand_t, base_t, reduce="min"),
+                  relax_reference(torch.as_tensor(dst2.astype(np.int64), **on), cand_t, base_t,
+                                  "min"), "min")
 
 
 @pytest.mark.cuda
@@ -252,6 +287,12 @@ FLASH_SHAPES = {
     "bf16_noncausal_window": (1, 200, 2, 1, 64, False, 64, torch.bfloat16),
     "bf16_odd_d33": (1, 130, 2, 2, 33, True, None, torch.bfloat16),
     "bf16_d16": (2, 100, 2, 1, 16, False, 20, torch.bfloat16),
+    # S not a multiple of the wgmma kernel's 128-row tiles
+    "bf16_s333_causal_d64": (2, 333, 4, 2, 64, True, None, torch.bfloat16),
+    "bf16_s200_noncausal_d128": (1, 200, 4, 1, 128, False, None, torch.bfloat16),
+    "bf16_s129_window_d40": (1, 129, 2, 1, 40, True, 50, torch.bfloat16),
+    "bf16_s1_d128": (1, 1, 2, 1, 128, True, None, torch.bfloat16),
+    "bf16_s1100_noncausal_window_d96": (1, 1100, 4, 2, 96, False, 300, torch.bfloat16),
 }
 
 
@@ -265,13 +306,42 @@ def test_flash_kernel_matches_plain_version(cuda_device, shape):
         for sh in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d))
     )
     before = flash_fwd.launches
+    variants = dict(flash_fwd.variant_launches)
     out = flash_attention(q, k, v, causal=causal, window=window)
     ref = reference_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_fwd.launches == before + 1
+    took = variant_for(d, dtype, aligned=True)  # fresh tensors start on 16 bytes
+    assert took == ("float32" if dtype == torch.float32
+                    else "bfloat16-wgmma" if d % 8 == 0 else "bfloat16-mma")
+    assert {k_: n_ - variants[k_] for k_, n_ in flash_fwd.variant_launches.items()
+            if n_ != variants[k_]} == {took: 1}
     assert out.dtype == dtype and out.shape == q.shape
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     if dtype == torch.bfloat16:
         exact = attention_rows(q, k, v, 0, s, causal=causal, window=window)
         assert bf16_tolerance_ratio(out, exact) <= 1.0
+
+
+@pytest.mark.cuda
+def test_flash_unaligned_bf16_takes_the_mma_kernel(cuda_device):
+    """A bfloat16 base off 16 bytes goes to the mma.sync kernel (TMA needs
+    16-byte bases), by shape and before any launch."""
+    b, s, h, hk, d = 1, 300, 4, 2, 64
+    rng = np.random.default_rng(5)
+
+    def off_by_one(shape):
+        x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+        flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+        t = flat[1:].view(shape)
+        t.copy_(x)
+        return t
+
+    q, k, v = off_by_one((b, s, h, d)), off_by_one((b, s, hk, d)), off_by_one((b, s, hk, d))
+    before = flash_fwd.variant_launches["bfloat16-mma"]
+    out = flash_attention(q, k, v, causal=True, window=None)
+    torch.cuda.synchronize()
+    assert flash_fwd.variant_launches["bfloat16-mma"] == before + 1
+    exact = attention_rows(q, k, v, 0, s, causal=True, window=None)
+    assert bf16_tolerance_ratio(out, exact) <= 1.0

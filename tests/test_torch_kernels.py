@@ -22,11 +22,17 @@ import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
+import repro.graph.structs as jax_structs
+import repro.kernels.bfs_relax.ops as jax_relax_ops
 from repro.analysis.fixtures import _legacy_block_dims
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_attention import reference_attention as jax_ref_attention
 from repro.kernels.segment_sum import reference_segment_sum as jax_ref_segment_sum
 from repro.kernels.segment_sum import sorted_segment_sum as jax_segment_sum
+from repro_torch.graph.structs import row_ptr_for
+from repro_torch.kernels.bfs_relax import kernel as relax_kernel
+from repro_torch.kernels.bfs_relax import ops as relax_ops
+from repro_torch.kernels.bfs_relax.ref import relax_reference
 from repro_torch.kernels.build import check_grid
 from repro_torch.kernels.flash_attention import flash_attention, reference_attention
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -269,11 +275,16 @@ def test_reference_attention_chunks_agree_with_one_pass(monkeypatch, causal, win
     np.testing.assert_allclose(chunked.numpy(), whole.numpy(), atol=1e-6, rtol=1e-6)
 
 
-def _replay_flash_tiles(q, k, v, causal, window, bq, bk):
+def _replay_flash_tiles(q, k, v, causal, window, bq, bk, half=None, mask_past_s=True):
     """numpy replay of csrc/flash_attention.cu's loop: per query tile, the
     key tiles ``key_tile_range`` visits, the mask skipped where the
-    ``full`` predicate holds, and the streaming softmax in log2 units."""
+    ``full`` predicate holds, and the streaming softmax in log2 units.
+    ``half`` splits each query tile into row groups that share its key
+    tiles and decide ``full`` on their own rows (the wgmma kernel's two
+    consumer warpgroups of 64 rows).  Key tiles past S are zero-filled, as
+    TMA fills them; ``mask_past_s=False`` leaves those keys unmasked."""
     b, s, h, d = q.shape
+    half = half or bq
     g = h // k.shape[2]
     out = np.zeros(q.shape, np.float64)
     sl2 = np.log2(np.e) / np.sqrt(d)
@@ -281,40 +292,42 @@ def _replay_flash_tiles(q, k, v, causal, window, bq, bk):
         k_lo = max(0, q0 - window + 1) if window else 0
         k_hi = min(s, q0 + bq) if causal else s
         t_lo, t_hi = k_lo // bk, (-(-k_hi // bk) if k_hi > k_lo else k_lo // bk)
-        rows = np.arange(q0, q0 + bq)
-        for hh in range(h):
-            qt = np.zeros((b, bq, d))
-            qt[:, : min(bq, s - q0)] = q[:, q0 : q0 + bq, hh]
-            m = np.full((b, bq), -np.inf)
-            l = np.zeros((b, bq))
-            acc = np.zeros((b, bq, d))
-            for kt in range(t_lo, t_hi):
-                k0 = kt * bk
-                kk = np.zeros((b, bk, d))
-                vv = np.zeros((b, bk, d))
-                kk[:, : min(bk, s - k0)] = k[:, k0 : k0 + bk, hh // g]
-                vv[:, : min(bk, s - k0)] = v[:, k0 : k0 + bk, hh // g]
-                sc = np.einsum("bqd,bkd->bqk", qt, kk) * sl2
-                full = (k0 + bk <= s and (not causal or k0 + bk - 1 <= q0)
-                        and (not window or k0 > q0 + bq - 1 - window))
-                if not full:
-                    cols = np.arange(k0, k0 + bk)[None, :]
-                    keep = cols < s
-                    if causal:
-                        keep = keep & (cols <= rows[:, None])
-                    if window:
-                        keep = keep & (cols > rows[:, None] - window)
-                    sc = np.where(keep[None], sc, -np.inf)
-                m_new = np.maximum(m, sc.max(-1))
-                m_use = np.where(np.isneginf(m_new), 0.0, m_new)
-                p = np.exp2(sc - m_use[..., None])
-                corr = np.exp2(m - m_use)
-                l = l * corr + p.sum(-1)
-                acc = acc * corr[..., None] + np.einsum("bqk,bkd->bqd", p, vv)
-                m = m_new
-            n_rows = min(bq, s - q0)
-            inv = np.where(l > 0, 1.0 / np.where(l > 0, l, 1.0), 0.0)  # rows past S
-            out[:, q0 : q0 + n_rows, hh] = (acc * inv[..., None])[:, :n_rows]
+        for qa in range(q0, q0 + bq, half):
+            rows = np.arange(qa, qa + half)
+            for hh in range(h):
+                qt = np.zeros((b, half, d))
+                qt[:, : max(0, min(half, s - qa))] = q[:, qa : qa + half, hh]
+                m = np.full((b, half), -np.inf)
+                l = np.zeros((b, half))
+                acc = np.zeros((b, half, d))
+                for kt in range(t_lo, t_hi):
+                    k0 = kt * bk
+                    kk = np.zeros((b, bk, d))
+                    vv = np.zeros((b, bk, d))
+                    kk[:, : min(bk, s - k0)] = k[:, k0 : k0 + bk, hh // g]
+                    vv[:, : min(bk, s - k0)] = v[:, k0 : k0 + bk, hh // g]
+                    sc = np.einsum("bqd,bkd->bqk", qt, kk) * sl2
+                    full = ((k0 + bk <= s or not mask_past_s)
+                            and (not causal or k0 + bk - 1 <= qa)
+                            and (not window or k0 > qa + half - 1 - window))
+                    if not full:
+                        cols = np.arange(k0, k0 + bk)[None, :]
+                        keep = cols < s if mask_past_s else np.ones_like(cols, bool)
+                        if causal:
+                            keep = keep & (cols <= rows[:, None])
+                        if window:
+                            keep = keep & (cols > rows[:, None] - window)
+                        sc = np.where(keep[None], sc, -np.inf)
+                    m_new = np.maximum(m, sc.max(-1))
+                    m_use = np.where(np.isneginf(m_new), 0.0, m_new)
+                    p = np.exp2(sc - m_use[..., None])
+                    corr = np.exp2(m - m_use)
+                    l = l * corr + p.sum(-1)
+                    acc = acc * corr[..., None] + np.einsum("bqk,bkd->bqd", p, vv)
+                    m = m_new
+                n_rows = max(0, min(half, s - qa))
+                inv = np.where(l > 0, 1.0 / np.where(l > 0, l, 1.0), 0.0)  # rows past S
+                out[:, qa : qa + n_rows, hh] = (acc * inv[..., None])[:, :n_rows]
     return out
 
 
@@ -328,6 +341,34 @@ def test_flash_kernel_tile_loop_replay(bq, bk, s, causal, window):
     rep = _replay_flash_tiles(*(t.numpy().astype(np.float64) for t in (tq, tk, tv)),
                               causal, window, bq, bk)
     np.testing.assert_allclose(rep, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("s,causal,window", [(200, True, None), (300, False, None),
+                                             (333, True, 100), (130, False, 50),
+                                             (256, True, None), (1, True, None)])
+def test_flash_wgmma_tile_loop_replay(s, causal, window):
+    """The wgmma kernel's tiling: 128-query tiles as two 64-row halves,
+    128-key tiles, masks only on the tiles a half's rows cut, keys at or
+    past S masked."""
+    _, (tq, tk, tv) = _qkv(1, s, 4, 2, 16, "float32", seed=s + 1)
+    ref = reference_attention(tq, tk, tv, causal=causal, window=window).numpy()
+    args = [t.numpy().astype(np.float64) for t in (tq, tk, tv)]
+    rep = _replay_flash_tiles(*args, causal, window, 128, 128, half=64)
+    np.testing.assert_allclose(rep, ref, atol=1e-5, rtol=1e-5)
+    if not causal and s % 128:  # TMA's zero-filled keys past S, left unmasked, take weight
+        bad = _replay_flash_tiles(*args, causal, window, 128, 128, half=64, mask_past_s=False)
+        assert np.abs(bad - ref).max() > 1e-2
+
+
+def test_flash_variant_is_chosen_by_shape():
+    vf = flash_kernel.variant_for
+    assert vf(128, torch.bfloat16, True) == "bfloat16-wgmma"
+    assert vf(40, torch.bfloat16, True) == "bfloat16-wgmma"
+    assert vf(33, torch.bfloat16, True) == "bfloat16-mma"
+    assert vf(128, torch.bfloat16, False) == "bfloat16-mma"
+    assert vf(128, torch.float32, True) == "float32"
+    assert flash_kernel.launch_grid(1, 300, 4, "bfloat16-wgmma") == (3, 4, 1)
+    assert flash_kernel.launch_grid(1, 300, 4, "bfloat16-mma") == (5, 4, 1)
 
 
 def test_flash_attention_rejects_bad_shapes():
@@ -381,5 +422,192 @@ def test_wrapper_grids_are_never_empty(e, d):
     for m in seg_kernel.segment_levels(e):
         for vec in (1, 4):
             check_grid(seg_kernel.launch_grid(m, d, vec), "segment sum")
-    for dtype in (torch.float32, torch.bfloat16):
-        check_grid(flash_kernel.launch_grid(1, min(e, 40_000), 48, dtype), "flash")
+    for variant in flash_kernel.VARIANTS:
+        check_grid(flash_kernel.launch_grid(1, min(e, 40_000), 48, variant), "flash")
+
+
+# ---------------------------------------------------------------------------
+# relax: the merge-path partition and the fix-up of cut rows
+# ---------------------------------------------------------------------------
+
+
+def _merge_search(diag, rows, edges, e_lo, ends):
+    """csrc/relax.cu's ``merge_search``: the row ends among the first
+    ``diag`` items of the merge of ``ends`` with ``e_lo + arange(edges)``."""
+    lo, hi = max(0, diag - edges), min(diag, rows)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if ends[mid] <= e_lo + diag - mid - 1:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _replay_relax(row_ptr, cand, base, reduce, threads, items):
+    """numpy replay of csrc/relax.cu: tile starts by merge path, each
+    thread's walk over its items, the segmented scan of the threads'
+    partials, head and tail partials of cut rows, and the fix-up.  Returns
+    the output and, per row, the tiles its edges span."""
+    tile = threads * items
+    n = len(row_ptr) - 1
+    s_count, e = cand.shape
+    acc_dt = np.float64 if reduce == "sum" and base.dtype == np.float32 else base.dtype.type
+    comb = np.minimum if reduce == "min" else np.add
+    ident = relax_ops._identity_scalar(reduce, acc_dt)
+    tiles = -(-(n + e) // tile)
+    starts = []
+    for t in range(tiles + 1):
+        d = min(t * tile, n + e)
+        i = _merge_search(d, n, e, 0, row_ptr[1:])
+        starts.append((i, d - i))
+    out = np.zeros_like(base)
+    writes = np.zeros(base.shape, np.int64)
+    head = np.full((s_count, tiles), ident, acc_dt)
+    tail = np.full((s_count, tiles), ident, acc_dt)
+    spans = {}
+    for b in range(tiles):
+        (i0, j0), (i1, j1) = starts[b], starts[b + 1]
+        nr, ne = i1 - i0, j1 - j0
+        ends = row_ptr[i0 + 1 : i1 + 1]
+        cut = nr > 0 and row_ptr[i0] < j0
+        walks = []
+        for t in range(threads):
+            d0 = min(t * items, nr + ne)
+            d1 = min(d0 + items, nr + ne)
+            ti0 = _merge_search(d0, nr, ne, j0, ends)
+            walks.append((d0, d1, ti0, d0 - ti0))
+        for s in range(s_count):
+            c = cand[s, j0:j1].astype(acc_dt)
+
+            def walk(d0, d1, ti, tj, a, emit):
+                flag = False
+                for _ in range(d0, d1):
+                    if ti < nr and ends[ti] <= j0 + tj:
+                        emit(ti, a)
+                        flag, a, ti = True, ident, ti + 1
+                    else:
+                        a, tj = comb(a, c[tj]), tj + 1
+                return flag, a
+
+            parts = [walk(*w, ident, lambda ti, a: None) for w in walks]
+            scan, run = [], ident
+            for flag, a in parts:
+                run = a if flag else comb(run, a)
+                scan.append(run)
+
+            def emit(ti, a, s=s, b=b):
+                if ti == 0 and cut:
+                    head[s, b] = a
+                else:
+                    r = i0 + ti
+                    out[s, r] = comb(acc_dt(base[s, r]), a)
+                    writes[s, r] += 1
+
+            for t, w in enumerate(walks):
+                walk(*w, scan[t - 1] if t else ident, emit)
+            if i1 < n:
+                tail[s, b] = scan[-1]
+        if cut:
+            r = i0
+            first = (r + row_ptr[r]) // tile
+            spans[r] = b - first + 1
+            for s in range(s_count):
+                acc = ident
+                for k in range(first, b):
+                    acc = comb(acc, tail[s, k])
+                out[s, r] = comb(comb(acc_dt(base[s, r]), acc), head[s, b])
+                writes[s, r] += 1
+    assert (writes == 1).all(), "a row was written twice or never"
+    return out.astype(base.dtype), spans
+
+
+def _relax_inputs(n, e, reduce, dtype, seed, hub=None, s=2):
+    rng = np.random.default_rng(seed)
+    dst = rng.integers(0, n, e)
+    if hub is not None:  # vertex, in-edges
+        dst = np.concatenate([dst, np.full(hub[1], hub[0])])
+    dst = np.sort(dst).astype(np.int32)
+    e = len(dst)
+    ident = relax_ops._identity_scalar(reduce, dtype)
+    if dtype == np.int32:
+        cand = rng.integers(0, 1000, (s, e)).astype(np.int32)
+        base = rng.integers(0, 1000, (s, n)).astype(np.int32)
+    else:
+        cand = rng.uniform(0.0, 10.0, (s, e)).astype(np.float32)
+        base = rng.uniform(0.0, 10.0, (s, n)).astype(np.float32)
+    cand[rng.random((s, e)) < 0.3] = ident
+    if reduce == "min":
+        base[rng.random((s, n)) < 0.3] = ident
+    return dst, cand, base
+
+
+RELAX_REPLAY = {
+    # name: (n, e, hub (vertex, in-edges) or None, threads, items)
+    "cut_rows": (50, 300, None, 4, 4),
+    "hub_3_tiles": (20, 40, (7, 100), 4, 4),
+    "zero_degree_at_boundary": (200, 30, None, 4, 4),
+    "e0": (37, 0, None, 4, 4),
+    "n_lt_8": (5, 9, None, 4, 4),
+    "single_edge": (40, 1, None, 4, 4),
+    "kernel_tile_hub": (3000, 20000, (1234, 6000), 128, 16),  # csrc/relax.cu's tiling
+}
+RELAX_VARIANTS = [("min", np.float32), ("min", np.int32), ("sum", np.float32)]
+
+
+@pytest.mark.parametrize("variant", RELAX_VARIANTS, ids=["min-f32", "min-i32", "sum-f32"])
+@pytest.mark.parametrize("name", sorted(RELAX_REPLAY))
+def test_relax_merge_path_replay(name, variant):
+    """The kernel's partition and fix-up replayed in numpy, against the
+    plain version and (at small sizes) the JAX kernel in interpret mode:
+    min bit-exact, sum within rtol=1e-5, atol=1e-9."""
+    reduce, dtype = variant
+    n, e, hub, threads, items = RELAX_REPLAY[name]
+    dst, cand, base = _relax_inputs(n, e, reduce, dtype, seed=n + e, hub=hub)
+    row_ptr = row_ptr_for(dst, n)
+    rep, spans = _replay_relax(row_ptr, cand, base, reduce, threads, items)
+    assert rep.dtype == base.dtype
+    tile = threads * items
+    if name == "kernel_tile_hub":
+        assert tile == relax_kernel.TILE_ITEMS
+    if name == "hub_3_tiles" or name == "kernel_tile_hub":
+        assert spans[hub[0]] >= 3, spans
+    if name == "cut_rows":
+        assert len(spans) >= 3
+    if name == "zero_degree_at_boundary":  # a tile starts on a row with no edges
+        assert any(
+            row_ptr[_merge_search(d, n, len(dst), 0, row_ptr[1:])]
+            == row_ptr[_merge_search(d, n, len(dst), 0, row_ptr[1:]) + 1]
+            for d in range(tile, n + len(dst), tile)
+        )
+    ref = relax_reference(
+        torch.as_tensor(dst.astype(np.int64)), torch.as_tensor(cand), torch.as_tensor(base), reduce
+    ).numpy()
+    refs = [ref]
+    if tile == 16:
+        refs.append(np.asarray(_jax_relax_blockmap(dst, cand, base, reduce)))
+    for r in refs:
+        if reduce == "min":
+            np.testing.assert_array_equal(rep, r)
+        else:
+            np.testing.assert_allclose(rep, r, rtol=1e-5, atol=1e-9)
+
+
+def _jax_relax_blockmap(dst, cand, base, reduce):
+    s, e = cand.shape
+    n = base.shape[1]
+    bn, be, _, _ = jax_relax_ops._block_dims(n, e, 64, 64)
+    start, cnt, t_max = jax_structs.block_ranges_for(dst, n, bn, be)
+    return jax_relax_ops.relax_blockmap_call(
+        jnp.asarray(start), jnp.asarray(cnt), jnp.asarray(dst),
+        jnp.asarray(cand), jnp.asarray(base), reduce=reduce,
+        block_n=bn, block_e=be, t_max=t_max, interpret=True,
+    )
+
+
+@pytest.mark.parametrize("s,n,e", [(1, 1, 0), (4, 5, 9), (4, 4_194_304, 28_064_538),
+                                   (1, 4_194_304, 41_558_636)])
+def test_relax_wrapper_grids_are_never_empty(s, n, e):
+    for grid in relax_kernel.launch_grids(s, n, e):
+        check_grid(grid, "relax")
+    assert relax_kernel.tile_count(n, e) * relax_kernel.TILE_ITEMS >= n + e
