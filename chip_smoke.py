@@ -35,7 +35,9 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 the degenerate shapes (no edges, n < 8, one edge): min
                 bit-exact, sum within rtol=1e-5, atol=1e-9.  Times by CUDA
                 events, one call at a time and back to back, beside the
-                bound and one ``scatter_reduce`` call.
+                bound and one ``scatter_reduce`` call.  Then
+                ``relax_phases``: a diagnosis build of the kernel
+                (``RELAX_PHASE_CLOCKS``) splits a block's cycles by phase.
   7. oracle  -- BFS, SSSP, WCC and PageRank on a small graph on the card,
                 held against the port's numpy oracles.
   8. slice   -- the main path: BFS from 4 sources, WCC and 20 PageRank
@@ -72,6 +74,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -108,7 +111,12 @@ from repro_torch.graph.traversal import (  # noqa: E402
     reference_wcc,
 )
 from repro_torch.kernels.bfs_relax import ops as relax_ops  # noqa: E402
-from repro_torch.kernels.bfs_relax.kernel import VARIANTS, relax_rowptr  # noqa: E402
+from repro_torch.kernels.bfs_relax.kernel import (  # noqa: E402
+    VARIANTS,
+    RelaxKernel,
+    relax_rowptr,
+    tile_count,
+)
 from repro_torch.kernels.bfs_relax.ops import (  # noqa: E402
     _identity_scalar,
     layout_edges_on_device,
@@ -275,6 +283,12 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 KERNELS = {"relax": relax_rowptr, "segment_sum": segment_sum_sorted, "flash_attention": flash_fwd}
+#: a diagnosis build of the relax kernel that records its phase clocks
+#: (``RELAX_PHASE_CLOCKS`` in csrc/relax.cu); never on the main path
+RELAX_PHASE_KERNEL = RelaxKernel(defines=("RELAX_PHASE_CLOCKS",))
+#: the spans between relax_rowptr_kernel's phase marks, in order
+RELAX_PHASES = ("prologue loads", "per-thread search", "stage source 0", "walk + warp scan",
+                "block scan + first rows", "output, later sources")
 
 
 def phase_device() -> dict:
@@ -282,8 +296,8 @@ def phase_device() -> dict:
     all started together."""
     smi = _nvidia_smi()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        for fut in [pool.submit(k.load) for k in KERNELS.values()]:
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        for fut in [pool.submit(k.load) for k in (*KERNELS.values(), RELAX_PHASE_KERNEL)]:
             fut.result()
     build_s = time.perf_counter() - t0
     return {
@@ -838,6 +852,48 @@ def phase_kernels(pg, seed: int, device) -> dict:
     return out
 
 
+def phase_relax_phases(pg, seed: int, device) -> dict:
+    """Where relax_rowptr_kernel's time goes: the diagnosis build records
+    clock64() at each block's phase boundaries (source 0), at the main
+    path's shapes over both layouts; per phase the median cycles over the
+    blocks and the share of a block's median life.  Its output is held
+    against the plain version like the kernel's."""
+    layout = partitioned_edge_layout(pg)
+    n = pg.graph.n_vertices
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 4)
+    fn = RELAX_PHASE_KERNEL.load().relax_phase_clocks
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+    fn.restype = ctypes.c_int
+    out = {}
+    for variant, reduce, dtype, prog in MAIN_VARIANTS[:2]:
+        s_main = BFS_SOURCES if prog == "bfs" else 1
+        for name, lay in (("main-local", layout.local), ("main-remote", layout.remote)):
+            row_ptr = layout_index_on_device(lay, device, "cuda")
+            dst = layout_index_on_device(lay, device, "torch")
+            row_ptr, dst, cand, base = _random_case(gen, s_main, n, lay.n_edges, dtype, reduce,
+                                                    device, row_ptr=row_ptr, dst=dst)
+            RELAX_PHASE_KERNEL(row_ptr, cand, base, reduce=reduce)  # warm-up
+            got = RELAX_PHASE_KERNEL(row_ptr, cand, base, reduce=reduce)
+            torch.cuda.synchronize()
+            _check(torch.equal(got, relax_reference(dst, cand, base, reduce)),
+                   f"{variant} {name}: the phase-clock build disagrees with the plain version")
+            tiles = tile_count(n, lay.n_edges)
+            marks = np.zeros((min(tiles, 1 << 16), len(RELAX_PHASES) + 1), dtype=np.int64)
+            _check(fn(marks.ctypes.data, tiles) == 0, "reading the relax phase clocks failed")
+            spans = np.diff(marks, axis=1)
+            life = float(np.median(marks[:, -1] - marks[:, 0]))
+            out[f"{variant} {name}"] = {
+                "S": s_main, "blocks": int(marks.shape[0]), "median_block_cycles": life,
+                "median_cycles": dict(zip(RELAX_PHASES, np.median(spans, axis=0).tolist())),
+                "share_of_block": dict(zip(RELAX_PHASES,
+                                           (np.median(spans, axis=0) / life).tolist())),
+            }
+            del cand, base, got
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_relax_entries(pg, seed: int, device) -> dict:
     """The two min-only entries that stood on the TPU's
     ``bfs_relax_kernel_blockmap`` (``bfs_relax_csr``, dst-sorted layout)
@@ -1213,6 +1269,8 @@ def main(argv=None) -> int:
     checks = phase_kernels(pg, args.seed, device)
     report["kernel"] = checks
     _emit("kernel", {"variants": checks})
+    report["relax_phases"] = phase_relax_phases(pg, args.seed, device)
+    _emit("relax_phases", report["relax_phases"])
     report["oracle"] = phase_oracles(device, args.seed)
     _emit("oracle", report["oracle"])
     report["slice"], runs = phase_slice(pg, device, args.seed)

@@ -81,6 +81,23 @@ constexpr int kRowRegs = 2;                  // row ends and base values kept in
 constexpr int kAuxThreads = 256;             // partition and fix-up blocks
 constexpr unsigned kFull = 0xffffffffu;
 
+#ifdef RELAX_PHASE_CLOCKS
+// A diagnosis build (chip_smoke.py's relax_phases): thread 0 of each of
+// the first kClockedTiles blocks records clock64() at the reduction's
+// phase boundaries for source 0.  The default build records nothing.
+constexpr int kClockedTiles = 1 << 16;
+constexpr int kPhaseMarks = 7;
+__device__ long long g_phase_clock[kClockedTiles][kPhaseMarks];
+#define PHASE_MARK(i)                                                       \
+  do {                                                                      \
+    if (threadIdx.x == 0 && b < kClockedTiles) g_phase_clock[b][i] = clock64(); \
+  } while (0)
+#else
+#define PHASE_MARK(i) \
+  do {                \
+  } while (0)
+#endif
+
 // the register type a lane reduces in: double for a float sum, else T
 template <typename T, bool kMin>
 using acc_t = std::conditional_t<!kMin && std::is_same_v<T, float>, double, T>;
@@ -215,6 +232,7 @@ __global__ void __launch_bounds__(kThreads, 8)
   __shared__ int s_wflag[kWarps];
 
   const int64_t b = blockIdx.x;
+  PHASE_MARK(0);
   const int2 st0 = starts[b];
   const int2 st1 = starts[b + 1];
   const int i0 = st0.x, j0 = st0.y;
@@ -253,6 +271,7 @@ __global__ void __launch_bounds__(kThreads, 8)
     s_end[k] = __ldg(row_ptr + i0 + 1 + k) - j0;
   }
   __syncthreads();
+  PHASE_MARK(1);
 
   // this thread's items, [d0, d0 + cnt) of the tile, start at local (ti0, tj0)
   const int d0 = min(tid * kItems, nr + ne);
@@ -261,10 +280,12 @@ __global__ void __launch_bounds__(kThreads, 8)
       merge_search(d0, nr, ne, 0, [&](int64_t r) { return static_cast<int64_t>(s_end[r]); }));
   const int tj0 = d0 - ti0;
   const int end0 = ti0 < nr ? s_end[ti0] : INT_MAX;
+  PHASE_MARK(2);
 
   for (int64_t s = 0; s < s_count; ++s) {
     store_cand(s_items, regs, span);
     __syncthreads();  // source s is staged; source s - 1 is done with s_out
+    if (s == 0) PHASE_MARK(3);
     if (s + 1 < s_count) {  // source s + 1's candidates load while s is reduced
       span = cand_span(cand_bits + (s + 1) * e + j0, ne);
       load_cand(regs, span);
@@ -311,6 +332,7 @@ __global__ void __launch_bounds__(kThreads, 8)
       s_warp[warp] = v;
       s_wflag[warp] = f;
     }
+    if (s == 0) PHASE_MARK(4);
     __syncthreads();  // every walk is done with the candidates
     A pre = ident;    // the earlier warps, back to the nearest row end
     for (int w = warp - 1; w >= 0; --w) {
@@ -323,6 +345,7 @@ __global__ void __launch_bounds__(kThreads, 8)
     if (flag) s_out[ti0] = combine<A, kMin>(carry, first);
     if (tid == kThreads - 1 && open_end) tail[s * tiles + b] = v;
     __syncthreads();
+    if (s == 0) PHASE_MARK(5);
 
     // base folded in, rows written in order; the cut row's partial waits
     // for the fix-up.  Source s + 1's base loads as s's is used.
@@ -345,6 +368,7 @@ __global__ void __launch_bounds__(kThreads, 8)
           static_cast<A>(from_bits<T>(__ldg(base_bits + row0 + k))), s_out[k]));
     }
   }
+  PHASE_MARK(6);
 }
 
 // one warp per tile: the row cut by the tile's start, if it ends in the
@@ -443,6 +467,16 @@ int relax_rowptr_launch(int dtype, int reduce, const void* row_ptr, const void* 
                                   e, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#ifdef RELAX_PHASE_CLOCKS
+// the phase clocks of the first `tiles` blocks (at most kClockedTiles),
+// [tiles][kPhaseMarks] int64, into host memory
+int relax_phase_clocks(void* host, long long tiles) {
+  const long long n = tiles < kClockedTiles ? tiles : kClockedTiles;
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(host, g_phase_clock, n * kPhaseMarks * sizeof(long long)));
+}
+#endif
 
 const char* relax_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

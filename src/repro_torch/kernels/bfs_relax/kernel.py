@@ -74,8 +74,10 @@ class RelaxKernel(CudaKernel):
 
     error_fn = "relax_error_string"
 
-    def __init__(self, source: Path = SOURCE, build_dir: Path = BUILD_DIR):
-        super().__init__(source, build_dir)
+    def __init__(
+        self, source: Path = SOURCE, build_dir: Path = BUILD_DIR, defines: tuple[str, ...] = ()
+    ):
+        super().__init__(source, build_dir, defines)
         self.variant_launches = dict.fromkeys(VARIANTS, 0)
         # row_ptr -> (its version, n, e, tile starts): the split depends on
         # row_ptr alone, so a layout's later calls skip the partition kernel

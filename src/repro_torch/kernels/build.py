@@ -58,10 +58,11 @@ def find_nvcc() -> str | None:
 
 
 def build_library(
-    source: Path, build_dir: Path, nvcc: str | None = None
+    source: Path, build_dir: Path, nvcc: str | None = None, defines: tuple[str, ...] = ()
 ) -> tuple[Path, str]:
     """Compile ``source`` into a shared library (or reuse the build of the
-    same source and flags); returns ``(path, nvcc's output)``."""
+    same source and flags), with ``-D`` for each of ``defines``; returns
+    ``(path, nvcc's output)``."""
     nvcc = nvcc or find_nvcc()
     if nvcc is None or not os.path.isfile(nvcc):
         raise KernelBuildError(
@@ -69,7 +70,8 @@ def build_library(
             f"cannot build {Path(source).name}"
         )
     text = Path(source).read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     build_dir = Path(build_dir)
     lib = build_dir / f"lib{Path(source).stem}-{digest}.so"
     if lib.exists():
@@ -81,7 +83,7 @@ def build_library(
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, str(source)],
+            [nvcc, *flags, "-o", tmp, str(source)],
             capture_output=True, text=True, timeout=900,
         )
         if proc.returncode != 0:
@@ -130,9 +132,10 @@ class CudaKernel:
 
     error_fn = ""
 
-    def __init__(self, source: Path, build_dir: Path):
+    def __init__(self, source: Path, build_dir: Path, defines: tuple[str, ...] = ()):
         self.source = Path(source)
         self.build_dir = Path(build_dir)
+        self.defines = tuple(defines)
         self.launches = 0
         self.build_seconds: float | None = None
         self.build_log = ""
@@ -146,7 +149,7 @@ class CudaKernel:
         if self._lib is not None:
             return self._lib
         t0 = time.perf_counter()
-        path, log = build_library(self.source, self.build_dir, nvcc)
+        path, log = build_library(self.source, self.build_dir, nvcc, self.defines)
         lib = ctypes.CDLL(str(path))
         self._bind(lib)
         err = getattr(lib, self.error_fn)

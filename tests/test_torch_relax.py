@@ -21,6 +21,7 @@ import repro.kernels.bfs_relax.ops as jops
 import repro_torch.graph.program as tprog
 import repro_torch.graph.structs as tstructs
 import repro_torch.kernels.bfs_relax.ops as tops
+from repro_torch.kernels.bfs_relax.kernel import SOURCE as SOURCE_FOR_BUILD
 from repro_torch.kernels.bfs_relax.kernel import KernelBuildError, RelaxKernel
 from repro_torch.kernels.bfs_relax.ref import reference_bfs_relax
 
@@ -243,3 +244,23 @@ def test_refused_build_raises(tmp_path):
     assert not list((tmp_path / "build").glob("*.so"))
     with pytest.raises(KernelBuildError):  # no cached half-state: fails again
         kern.load(nvcc=str(fake))
+
+
+def test_build_defines_reach_nvcc_and_name_their_own_library(tmp_path):
+    """A diagnosis build (``-DRELAX_PHASE_CLOCKS``) gets its own library
+    name, so it never loads in place of the default build."""
+    from repro_torch.kernels.build import build_library
+
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        '#!/bin/sh\necho "$@" > "$(dirname "$0")/args.txt"\n'
+        'while [ "$1" != "-o" ]; do shift; done\ntouch "$2"\n'
+    )
+    fake.chmod(0o755)
+    plain, _ = build_library(SOURCE_FOR_BUILD, tmp_path / "b", nvcc=str(fake))
+    assert "-DRELAX_PHASE_CLOCKS" not in (tmp_path / "args.txt").read_text()
+    clocked, _ = build_library(
+        SOURCE_FOR_BUILD, tmp_path / "b", nvcc=str(fake), defines=("RELAX_PHASE_CLOCKS",)
+    )
+    assert "-DRELAX_PHASE_CLOCKS" in (tmp_path / "args.txt").read_text().split()
+    assert plain != clocked and plain.exists() and clocked.exists()
