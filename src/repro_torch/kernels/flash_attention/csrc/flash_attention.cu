@@ -747,7 +747,7 @@ using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t
                                    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                    CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// the driver's tensor-map encoder, reached through the runtime (no -lcuda)
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
 EncodeTiledFn encode_tiled() {
   static EncodeTiledFn fn = [] {
     void* p = nullptr;
