@@ -32,8 +32,10 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
   6. kernel  -- the CUDA relax kernel (every template instantiation the
                 main path runs) held against its plain PyTorch version at the
                 main path's shapes (the local and the remote layout) and at
-                the degenerate shapes (no edges, n < 8, one edge): min
-                bit-exact, sum within rtol=1e-5, atol=1e-9.  Times by CUDA
+                the degenerate shapes (no edges, n < 8, one edge), and
+                float32 min also at the elastic path's S=1 and the serving
+                path's S=8 over both layouts: min bit-exact, sum within
+                rtol=1e-5, atol=1e-9.  Times by CUDA
                 events, one call at a time and back to back, beside the
                 bound and one ``scatter_reduce`` call.  Then
                 ``relax_phases``: a diagnosis build of the kernel
@@ -51,11 +53,37 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 LIVJ's T_Min of 21 s; every placement strategy is billed at
                 delta = 60 s; ``predict_time_function`` gives the
                 metagraph's a-priori plan.
-  10. profile -- one more BFS traversal under ``torch.profiler``: the
+  10. elastic -- the plan executed: ``ElasticBSPExecutor`` runs BFS from
+                vertex 0 on LIVJ/8P, 8 supersteps per window, once per
+                placement strategy, each planned from the metagraph
+                prediction (in the trace's seconds) and re-planned online
+                with it as the sketch, plus one FFD run planned from the
+                prediction's first 3 supersteps only, which must re-plan;
+                launch counts set to 0 just before and read just after.
+                Held: state bit-identical to the slice's BFS row; the same
+                runs on the ``torch`` backend give the same
+                ``ExecutionReport``; one-superstep windows the same state and
+                tau with one bulk pull per superstep (+1).  Then a run with
+                4,096 seeded edge inserts merged at superstep 4, held against
+                ``bsp.run_program`` and the host BFS on the mutated graph
+                (which must hold 4,096 more edges), and the
+                ``repartition=`` variant (on a cut graph where one
+                repartition pass over LIVJ/8P would take over 30 s), which
+                must move vertices.
+  11. serve  -- ``TraversalService`` answers 64 BFS queries (8 rows a
+                batch, 8 supersteps a window): first all at t = 0 on all 8
+                VMs, which gives the highest rate mu it sustains, then Poisson
+                arrivals at 0.25 mu and 0.9 mu, elastic and static; launch
+                counts as above.  Held: every query accounted for, elastic
+                no dearer than static, and at 0.9 mu the ``cuda`` and
+                ``torch`` backends' reports identical and every completed
+                query's state row too, the first 2 also equal to the host
+                BFS.
+  12. profile -- one more BFS traversal under ``torch.profiler``: the
                 card's busy share, the kernels that take its time, and the
                 relax reduction's three kernels (partition, reduction,
                 fix-up) found by name.
-  11. relax_entries -- the two min-only entries (``bfs_relax_csr``,
+  13. relax_entries -- the two min-only entries (``bfs_relax_csr``,
                 ``bfs_relax``) at S=1 over the local edges, each against the
                 ``torch`` backend, timed beside the kernel alone.
 
@@ -74,7 +102,9 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -88,8 +118,13 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import STRATEGIES, BillingModel, TimeFunction, evaluate  # noqa: E402
+from repro_torch.core.elastic import ElasticBSPExecutor  # noqa: E402
 from repro_torch.core.metagraph import predict_time_function  # noqa: E402
-from repro_torch.graph import bsp  # noqa: E402
+from repro_torch.core.repartition import (  # noqa: E402
+    RepartitionConfig,
+    partition_penalty,
+)
+from repro_torch.graph import EdgeDeltaBuffer, bsp  # noqa: E402
 from repro_torch.graph.config import EngineConfig  # noqa: E402
 from repro_torch.graph.generators import rmat_graph, weighted  # noqa: E402
 from repro_torch.graph.partition import (  # noqa: E402
@@ -136,6 +171,8 @@ from repro_torch.kernels.segment_sum import (  # noqa: E402
     segment_sum_sorted,
     sorted_segment_sum,
 )
+from repro_torch.serve import ServiceConfig, TraversalService, poisson_trace  # noqa: E402
+from repro_torch.serve.batcher import MicroBatcher  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA's data sheet, at the full 700 W power limit):
 #: HBM3 bandwidth, the float32 rate outside the tensor cores (the relax
@@ -151,6 +188,25 @@ BILLING_DELTA_S = 60.0
 PAGERANK_ITERS = 20
 BFS_SOURCES = 4
 MAX_SUPERSTEPS = 256
+#: the executor's and the service's supersteps per window (``EngineConfig``
+#: and ``ServiceConfig`` defaults); the mutation run takes windows of 4, so
+#: its merge at superstep 4 lands on a window boundary before the BFS ends
+ELASTIC_WINDOW, MUTATION_WINDOW, MUTATION_STEP = 8, 4, 4
+MUTATION_INSERTS = 4096
+#: a repartition pass on the full graph is cut to this scale when its
+#: projected host time (one penalty per candidate of the default pass)
+#: passes REPARTITION_MAX_S.  The cut run scores this many boundary
+#: vertices: the default 256 are the R-MAT hubs, whose neighbours mostly
+#: share their partition, so random inserts would move none of them
+REPARTITION_CUT_SCALE, REPARTITION_MAX_S, REPARTITION_CANDIDATES = 16, 30.0, 16384
+SERVE_QUERIES, SERVE_BATCH = 64, 8
+#: completed serving queries whose state rows are also held against the host
+#: BFS (every completed row is held against the ``torch`` backend's)
+SERVE_HOST_CHECKS = 2
+#: one elastic run is planned from the prediction's first supersteps only,
+#: so the executed BFS outruns its plan and must re-plan
+REPLAN_PLAN_STEPS = 3
+SERVE_RATE_FRACTIONS = (0.25, 0.9)
 #: PageRank's state on the kernel is held against a float64 power iteration
 #: on the card.  A sum of positive terms adds no relative error beyond its own
 #: roundings, and an iteration rounds at most 7 times in float32 (state,
@@ -206,6 +262,10 @@ MAIN_VARIANTS = (
     ("int32-min", "min", torch.int32, "wcc"),
     ("float32-sum", "sum", torch.float32, "pagerank"),
 )
+#: the instantiation the elastic path (BFS, S=1) and the serving path (SSSP
+#: on unit weights, S = SERVE_BATCH) launch; ``phase_kernels`` also holds it
+#: at those two shapes over both layouts
+PATH_VARIANT = "float32-min"
 
 
 def _emit(phase: str, payload: dict) -> None:
@@ -831,13 +891,19 @@ def phase_kernels(pg, seed: int, device) -> dict:
     out = {}
     for variant, reduce, dtype, prog in MAIN_VARIANTS:
         s_main = BFS_SOURCES if prog == "bfs" else 1
+        paths = [("main", s_main, 10)]
+        if variant == PATH_VARIANT:
+            paths += [("elastic", 1, 5), ("serve", SERVE_BATCH, 5)]
         cases = []
-        for name, lay in (("main-local", layout.local), ("main-remote", layout.remote)):
-            row_ptr = layout_index_on_device(lay, device, "cuda")
-            dst = layout_index_on_device(lay, device, "torch")
-            args = _random_case(gen, s_main, n, lay.n_edges, dtype, reduce, device,
-                                row_ptr=row_ptr, dst=dst)
-            cases.append(_hold_case(name, variant, reduce, *args, reps=10))
+        for path, s, reps in paths:
+            for side, lay in (("local", layout.local), ("remote", layout.remote)):
+                row_ptr = layout_index_on_device(lay, device, "cuda")
+                dst = layout_index_on_device(lay, device, "torch")
+                args = _random_case(gen, s, n, lay.n_edges, dtype, reduce, device,
+                                    row_ptr=row_ptr, dst=dst)
+                name = f"{path}-{side}" + ("" if path == "main" else f"-s{s}")
+                cases.append(_hold_case(name, variant, reduce, *args, reps=reps))
+                del args
         shapes = (
             ("random-s4", BFS_SOURCES, n, layout.local.n_edges, 10),
             ("e0", BFS_SOURCES, 64, 0, 50),
@@ -1026,8 +1092,7 @@ def phase_slice(pg, device, seed: int) -> tuple[dict, dict]:
         setup_s[name] = time.perf_counter() - t0
 
     # -- the main path, with every launch count at 0 just before it --------
-    relax_rowptr.launches = 0
-    relax_rowptr.variant_launches = dict.fromkeys(VARIANTS, 0)
+    _zero_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     runs = {}
     for name, prog, sources in programs:
@@ -1112,7 +1177,9 @@ def phase_slice(pg, device, seed: int) -> tuple[dict, dict]:
     return summary, runs
 
 
-def phase_pipeline(pg, trace) -> dict:
+def phase_pipeline(pg, trace) -> tuple[dict, TimeFunction]:
+    """The trace billed per strategy, and the metagraph's prediction (in
+    the engine's unscaled units), which the elastic phase plans from."""
     tf = TimeFunction.from_trace(trace).scaled_to_tmin(LIVJ_T_MIN_S)
     model = BillingModel(delta=BILLING_DELTA_S)
     table = []
@@ -1138,6 +1205,277 @@ def phase_pipeline(pg, trace) -> dict:
         "cost_table": table,
         "n_subgraphs": n_subgraphs, "subgraphs_s": t1 - t0,
         "predicted_supersteps": sched.n_supersteps, "predict_s": t2 - t1,
+    }, pred_tf
+
+
+def _zero_launch_counts() -> None:
+    relax_rowptr.launches = 0
+    relax_rowptr.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+def _report_fields(rep) -> dict:
+    """An ``ExecutionReport`` as plain comparable values, wall time dropped."""
+    out = {k: v for k, v in vars(rep).items() if k != "wall_seconds"}
+    out["actual_tau"] = rep.actual_tau.tau
+    out["cost"] = dict(vars(rep.cost))
+    return out
+
+
+def _check_reports_equal(a, b, what: str) -> None:
+    fa, fb = _report_fields(a), _report_fields(b)
+    for k in fa:
+        if isinstance(fa[k], np.ndarray):
+            same = fa[k].dtype == fb[k].dtype and np.array_equal(fa[k], fb[k])
+        else:
+            same = fa[k] == fb[k]
+        _check(same, f"{what}: ExecutionReport.{k} differs")
+
+
+def _execute(pg, cfg, tau, plan, **run_kw):
+    """One ``ElasticBSPExecutor.run`` of BFS from vertex 0, timed on the host
+    clock; also the engine's own host reads (loop conditions + pulls, over
+    every engine the run used) and the relax kernel's launches in it."""
+    ex = ElasticBSPExecutor(pg, program=BfsProgram(), tau_scale=tau, config=cfg)
+    first, syncs0, launches0 = ex.engine, ex.engine.host_syncs, relax_rowptr.launches
+    t0 = time.perf_counter()
+    rep = ex.run(0, plan, **run_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine_syncs = first.host_syncs - syncs0
+    if ex.engine is not first:  # a mutation built the merged graph's engine
+        engine_syncs += ex.engine.host_syncs
+    return ex, rep, {
+        "cost_quanta": rep.cost.cost_quanta,
+        "makespan_over_tmin": rep.cost.makespan_over_tmin,
+        "migrations": rep.n_migrations, "migration_bytes": rep.migration_bytes,
+        "replans": rep.replans, "windows": rep.host_syncs - 1,
+        "supersteps": rep.n_supersteps,
+        "host_syncs_executor": rep.host_syncs, "host_syncs_engine": engine_syncs,
+        "relax_launches": relax_rowptr.launches - launches0,
+        "wall_s": wall,
+    }
+
+
+def _insert_buffer(n: int, seed: int) -> EdgeDeltaBuffer:
+    rng = np.random.default_rng(seed)
+    buf = EdgeDeltaBuffer(capacity=MUTATION_INSERTS)
+    buf.insert_many(rng.integers(0, n, MUTATION_INSERTS), rng.integers(0, n, MUTATION_INSERTS))
+    return buf
+
+
+def _mutation_run(pg, cfg, tau, plan, seed: int, repartition, base_row) -> dict:
+    """One executor run with the seeded inserts merged at superstep 4, held
+    against ``bsp.run_program`` on the mutated graph and against the host
+    BFS over the mutated graph's CSR; ``base_row`` is BFS from vertex 0 on
+    ``pg`` before the merge."""
+    torch.cuda.reset_peak_memory_stats()
+    ex, rep, line = _execute(pg, cfg, tau, plan, mutations=[(MUTATION_STEP, _insert_buffer(
+        pg.graph.n_vertices, seed))], repartition=repartition)
+    line["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    _check(rep.mutations_applied == 1, "the delta buffer was not merged")
+    _check(not repartition or rep.repartition_moves > 0, "the repartitioner moved no vertex")
+    _check(line["relax_launches"] > 0, "the mutation run launched the relax kernel no time")
+    fresh, _ = bsp.run_program(ex.pg, BfsProgram(), [0], max_supersteps=MAX_SUPERSTEPS,
+                               config=EngineConfig(device=cfg.device, backend="cuda"))
+    _check(np.array_equal(rep.dist, fresh[0]),
+           "the mutated run's state differs from a fresh run on the mutated graph")
+    g = ex.pg.graph
+    _check(g.n_edges == pg.graph.n_edges + MUTATION_INSERTS,
+           f"the merged graph holds {g.n_edges} edges, not {pg.graph.n_edges} + "
+           f"{MUTATION_INSERTS}")
+    row_ptr, col, _ = g.csr
+    _check(np.array_equal(rep.dist, _bfs_hops(row_ptr, col, g.n_vertices, 0).astype(np.float32)),
+           "the mutated run's state differs from the host BFS on the mutated graph")
+    line.update(mutations_applied=rep.mutations_applied,
+                repartition_moves=rep.repartition_moves,
+                edges_after=ex.pg.graph.n_edges,
+                vertices_changed_by_inserts=int((rep.dist != base_row).sum()))
+    return line
+
+
+def phase_elastic(pg, bfs_row, trace, pred_tf, device, seed: int) -> dict:
+    """The plan executed window by window (see the module docstring)."""
+    tau = LIVJ_T_MIN_S / TimeFunction.from_trace(trace).t_min()
+    sketch = TimeFunction(pred_tf.tau * tau)  # the prediction in the trace's seconds
+    cfg = EngineConfig(device=str(device), backend="cuda", window=ELASTIC_WINDOW)
+    # name -> (plan, strategy); the last plan covers only the prediction's
+    # first supersteps, so its run outruns the plan and re-plans
+    plans = {name: (strategy(sketch), strategy) for name, strategy in STRATEGIES.items()}
+    cut_plan = f"ffd-plan-cut-{REPLAN_PLAN_STEPS}"
+    plans[cut_plan] = (STRATEGIES["ffd"](TimeFunction(sketch.tau[:REPLAN_PLAN_STEPS])),
+                       STRATEGIES["ffd"])
+
+    def run(name, cfg_):
+        plan, strategy = plans[name]
+        return _execute(pg, cfg_, tau, plan, strategy_fn=strategy, replan=True, sketch=sketch)
+
+    # -- the path, with every launch count at 0 just before it -------------
+    _zero_launch_counts()
+    main = {name: run(name, cfg) for name in plans}
+    launches, variant_launches = relax_rowptr.launches, dict(relax_rowptr.variant_launches)
+    # -- end of the path -----------------------------------------------------
+    _check(launches > 0, "the elastic path launched the relax kernel no time")
+    _check(main[cut_plan][1].replans > 0, f"{cut_plan}: the run outran its plan but never "
+           "re-planned")
+    table = {}
+    for name, (_, rep, line) in main.items():
+        _check(line["relax_launches"] > 0, f"{name}: the run launched the relax kernel no time")
+        _check(np.array_equal(rep.dist, bfs_row), f"{name}: state differs from the slice's BFS")
+        _, plain, plain_line = run(name, cfg.replace(backend="torch"))
+        _check_reports_equal(rep, plain, f"{name} cuda vs torch backend")
+        _, step1, step1_line = run(name, cfg.replace(window=1))
+        _check(np.array_equal(step1.dist, rep.dist)
+               and np.array_equal(step1.actual_tau.tau, rep.actual_tau.tau),
+               f"{name}: one-superstep windows changed the state or tau")
+        _check(step1.host_syncs == step1.n_supersteps + 1,
+               f"{name}: {step1.host_syncs} bulk pulls for {step1.n_supersteps} windows")
+        table[name] = {**line, "torch_backend_wall_s": plain_line["wall_s"],
+                       "window1": {k: step1_line[k] for k in (
+                           "host_syncs_executor", "host_syncs_engine", "wall_s")}}
+
+    mutation = _mutation_run(pg, cfg.replace(window=MUTATION_WINDOW), tau, plans["ffd"][0], seed,
+                             repartition=None, base_row=bfs_row)
+    torch.cuda.empty_cache()
+
+    # -- repartition= : cut when one pass over the full graph is too slow --
+    t0 = time.perf_counter()
+    partition_penalty(pg.graph, pg.part_of_vertex)
+    penalty_s = time.perf_counter() - t0
+    candidates = 4 * RepartitionConfig().max_moves
+    cut = penalty_s * candidates > REPARTITION_MAX_S
+    rpg = build_graph(REPARTITION_CUT_SCALE, LIVJ_PARTS)[0] if cut else pg
+    rrow, rtrace = bsp.run_sssp(rpg, 0, max_supersteps=MAX_SUPERSTEPS, collect_subgraphs=False,
+                                config=EngineConfig(device=str(device), backend="cuda"))
+    rtf = TimeFunction.from_trace(rtrace)
+    t0 = time.perf_counter()
+    rcfg = RepartitionConfig(max_candidates=REPARTITION_CANDIDATES)
+    repartitioned = _mutation_run(
+        rpg, cfg.replace(window=MUTATION_WINDOW), LIVJ_T_MIN_S / rtf.t_min(),
+        STRATEGIES["ffd"](rtf.scaled_to_tmin(LIVJ_T_MIN_S)), seed, repartition=rcfg,
+        base_row=rrow)
+    repartitioned.update(cut=cut, scale=int(np.log2(rpg.graph.n_vertices)),
+                         full_graph_penalty_s=penalty_s, default_candidates=candidates,
+                         projected_full_pass_s=penalty_s * candidates,
+                         candidates=REPARTITION_CANDIDATES, run_s=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    return {
+        "program": "bfs", "source": 0, "window": ELASTIC_WINDOW, "tau_scale": tau,
+        "t_min_s": LIVJ_T_MIN_S, "strategies": table, "plan_cut_run": cut_plan,
+        "kernel_launches": launches, "variant_launches": variant_launches,
+        "mutation": {"window": MUTATION_WINDOW, "at_superstep": MUTATION_STEP,
+                     "inserts": MUTATION_INSERTS, **mutation},
+        "repartition": repartitioned,
+    }
+
+
+@contextlib.contextmanager
+def _retired_rows(rows: dict):
+    """Keep, per query id, the state row its batch row held when it retired
+    (a copy on the card).  A row retires when its query completes, or before
+    a requeue; the query's last retirement is its completion, so after the
+    run ``rows[q.qid]`` is the answer of every completed query ``q``."""
+    retire = MicroBatcher.retire
+
+    def keep(self, row):
+        rec = retire(self, row)
+        rows[rec.qid] = self.state.dist[row].clone()
+        return rec
+
+    MicroBatcher.retire = keep
+    try:
+        yield rows
+    finally:
+        MicroBatcher.retire = retire
+
+
+def _serve(pg, trace, cfg: ServiceConfig, ecfg: EngineConfig, rows: dict | None = None):
+    """One ``TraversalService.run``: the report and its line, with the lane
+    engine's host reads and the relax kernel's launches in it; ``rows``
+    also collects the completed queries' state rows (``_retired_rows``)."""
+    engine = get_engine(pg, program=SsspProgram(), config=ecfg)
+    syncs0, launches0 = engine.host_syncs, relax_rowptr.launches
+    splits0 = relax_rowptr.partition_launches
+    t0 = time.perf_counter()
+    with _retired_rows(rows) if rows is not None else contextlib.nullcontext():
+        rep = TraversalService(pg, config=cfg, engine_config=ecfg).run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check(rep.completed + rep.rejected + rep.dropped == rep.offered,
+           f"{rep.offered} queries offered, {rep.completed} + {rep.rejected} + "
+           f"{rep.dropped} accounted for")
+    return rep, {
+        "offered": rep.offered, "completed": rep.completed,
+        "queries_per_s": rep.queries_per_sec,
+        "sojourn_p50_s": rep.sojourn_p50, "sojourn_p99_s": rep.sojourn_p99,
+        "occupancy": rep.occupancy, "capacity_mean": rep.capacity_mean,
+        "capacity_peak": rep.capacity_peak, "cost_quanta": rep.cost.cost_quanta,
+        "cost_per_1k_queries": rep.cost_per_1k_queries, "windows": rep.windows,
+        "supersteps": rep.supersteps, "wall_s": wall,
+        "wall_s_per_window": wall / max(rep.windows, 1),
+        "host_syncs_engine": engine.host_syncs - syncs0,
+        "relax_launches": relax_rowptr.launches - launches0,
+        "partition_launches": relax_rowptr.partition_launches - splits0,
+    }
+
+
+def phase_serve(pg, trace, device, seed: int) -> dict:
+    """A stream of BFS queries served under elastic capacity (see the
+    module docstring)."""
+    tau = LIVJ_T_MIN_S / TimeFunction.from_trace(trace).t_min()
+    cfg = ServiceConfig(s_batch=SERVE_BATCH, window=ELASTIC_WINDOW, tau_scale=tau)
+    static_cfg = dataclasses.replace(cfg, static_vms=cfg.max_vms)
+    ecfg = EngineConfig(device=str(device), backend="cuda")
+    n = pg.graph.n_vertices
+
+    # -- the path, with every launch count at 0 just before it -------------
+    _zero_launch_counts()
+    _, burst = _serve(pg, poisson_trace(SERVE_QUERIES, 1e9, n, seed=seed), static_cfg, ecfg)
+    mu = burst["queries_per_s"]
+    frac = SERVE_RATE_FRACTIONS[-1]  # the rate held against the torch backend
+    rates, reports, rows = {}, {}, {}
+    for f in SERVE_RATE_FRACTIONS:
+        trace_f = poisson_trace(SERVE_QUERIES, f * mu, n, seed=seed)
+        reports[f], elastic = _serve(pg, trace_f, cfg, ecfg, rows if f == frac else None)
+        _, static = _serve(pg, trace_f, static_cfg, ecfg)
+        rates[f"{f}mu"] = {"rate_qps": f * mu, "elastic": elastic, "static": static}
+    launches, variant_launches = relax_rowptr.launches, dict(relax_rowptr.variant_launches)
+    # -- end of the path -----------------------------------------------------
+    _check(launches > 0, "the serving path launched the relax kernel no time")
+    for key, row in rates.items():
+        for mode in ("elastic", "static"):
+            _check(row[mode]["relax_launches"] > 0, f"{key} {mode}: no relax launch")
+            _check(row[mode]["partition_launches"] == 0,
+                   f"{key} {mode}: the relax kernel split a layout again")
+        _check(row["elastic"]["cost_quanta"] <= row["static"]["cost_quanta"],
+               f"{key}: elastic billed {row['elastic']['cost_quanta']} quanta, static "
+               f"{row['static']['cost_quanta']}")
+    plain_rows = {}
+    plain, plain_line = _serve(pg, poisson_trace(SERVE_QUERIES, frac * mu, n, seed=seed), cfg,
+                               ecfg.replace(backend="torch"), plain_rows)
+    _check(plain.asdict() == reports[frac].asdict(),
+           f"{frac}mu: the cuda and torch backends' ServiceReports differ")
+    # the answers: every completed query's state row on both backends, and
+    # the first few against the host BFS (SSSP on unit weights = hops)
+    done = reports[frac].queries
+    _check(len(done) > 0, f"{frac}mu: no query completed")
+    for q in done:
+        _check(torch.equal(rows[q.qid], plain_rows[q.qid]),
+               f"{frac}mu: query {q.qid} (source {q.source}) answered differently on the "
+               "cuda and torch backends")
+    row_ptr, col, _ = pg.graph.csr
+    for q in done[:SERVE_HOST_CHECKS]:
+        hops = _bfs_hops(row_ptr, col, n, q.source).astype(np.float32)
+        _check(np.array_equal(rows[q.qid].cpu().numpy(), hops),
+               f"{frac}mu: query {q.qid} (source {q.source}) differs from the host BFS")
+    del rows, plain_rows
+    return {
+        "program": "sssp", "queries": SERVE_QUERIES, "s_batch": SERVE_BATCH,
+        "window": ELASTIC_WINDOW, "tau_scale": tau, "mu_qps": mu, "burst_static": burst,
+        "rates": rates, "torch_backend_identical_at": f"{frac}mu",
+        "answers_held": {"against_torch_backend": len(done),
+                         "against_host_bfs": len(done[:SERVE_HOST_CHECKS])},
+        "torch_backend_wall_s": plain_line["wall_s"],
+        "kernel_launches": launches, "variant_launches": variant_launches,
     }
 
 
@@ -1180,12 +1518,14 @@ def phase_profile(pg, device, seed: int) -> dict:
 
 
 def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
-                 seg_livj: dict) -> dict:
+                 seg_livj: dict, path_launches: dict) -> dict:
     """One entry per kernel the main path launched, with its numbers at the
     main path's own shape: the relax kernel's local closure reduction, the
     segment sum over uniform ids, the flash kernel at the Mixtral 32k
     window (the other cases of each are under ``cases``; the segment sum's
-    LIVJ case has its own ``launches`` there)."""
+    LIVJ case has its own ``launches`` there).  The relax entries also
+    count their launches on the elastic and serving paths
+    (``launches_by_path``, each read around its own path)."""
     entries = []
     for variant, _, _, prog in MAIN_VARIANTS:
         cases = checks[variant]
@@ -1196,6 +1536,8 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
             "source": KERNEL_SOURCE,
             "replaces": KERNEL_REPLACES,
             "launches": variant_launches[variant],
+            "launches_by_path": {"slice": variant_launches[variant],
+                                 **{p: v[variant] for p, v in path_launches.items()}},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],
@@ -1275,8 +1617,14 @@ def main(argv=None) -> int:
     _emit("oracle", report["oracle"])
     report["slice"], runs = phase_slice(pg, device, args.seed)
     _emit("slice", report["slice"])
-    report["pipeline"] = phase_pipeline(pg, runs["bfs"]["traces"][0])
+    bfs_trace = runs["bfs"]["traces"][0]
+    report["pipeline"], pred_tf = phase_pipeline(pg, bfs_trace)
     _emit("pipeline", report["pipeline"])
+    report["elastic"] = phase_elastic(pg, runs["bfs"]["dist"][0], bfs_trace, pred_tf, device,
+                                      args.seed)
+    _emit("elastic", report["elastic"])
+    report["serve"] = phase_serve(pg, bfs_trace, device, args.seed)
+    _emit("serve", report["serve"])
     report["profile"] = phase_profile(pg, device, args.seed)
     _emit("profile", report["profile"])
     report["relax_entries"] = phase_relax_entries(pg, args.seed, device)
@@ -1284,6 +1632,7 @@ def main(argv=None) -> int:
     report["kernels"] = kernels_line(
         checks, report["slice"]["variant_launches"], report["segment_sum"],
         report["flash_attention"], report["segment_sum_livj"],
+        {path: report[path]["variant_launches"] for path in ("elastic", "serve")},
     )["kernels"]
     report["wall_s"] = time.perf_counter() - t_start
     _emit("done", {"wall_s": report["wall_s"]})

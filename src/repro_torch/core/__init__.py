@@ -6,8 +6,10 @@
   placement   -- Default / OPT / FFD / MF-P / LA-P placement strategies
   activation  -- VM keep-vs-terminate policy across idle gaps
   billing     -- makespan / core-min cost / core-secs / under-utilization
-
-Online re-planning and the elastic executor come with a later slice.
+  replan      -- online re-planning: activity-decay extrapolation + splice
+  repartition -- bounded LPA repartitioning after graph mutations
+  elastic     -- the windowed executor mapping placement schedules onto
+                 torch devices (``core.elastic.ElasticBSPExecutor``)
 """
 
 from repro_torch.core.billing import BillingModel, CostReport, evaluate
@@ -21,9 +23,13 @@ from repro_torch.core.placement import (
     mfp_placement,
     opt_placement,
 )
+from repro_torch.core.replan import OnlineReplanner, ReplanConfig, extrapolate_tau
 from repro_torch.core.timing import TimeFunction
 
 __all__ = [
+    "OnlineReplanner",
+    "ReplanConfig",
+    "extrapolate_tau",
     "TimeFunction",
     "Metagraph",
     "build_metagraph",

@@ -3,12 +3,13 @@
 ``EngineConfig`` carries every knob from ``bsp.run_program`` down to the
 dense ``TraversalEngine``.  It mirrors ``repro.graph.config.EngineConfig``
 minus the knobs whose subsystems are not ported yet (mesh, hub mirroring,
-windowed relayout, the TPU block sizes) and plus ``device``: entry points run
+the mesh relayout, the TPU block sizes) and plus ``device``: entry points run
 on the card unless the caller asks for the CPU.  There are no legacy kwarg
 shims -- callers pass ``config=``.
 
 ``REPORT_SCHEMA_VERSION`` + ``versioned_report`` define the shared
-``asdict()`` surface of ``TraversalResult``: ``schema_version`` and ``kind``
+``asdict()`` surface of ``TraversalResult``, ``ExecutionReport`` and
+``ServiceReport``: ``schema_version`` and ``kind``
 first, then the result's fields by name -- the same dict the JAX package
 returns, so consumers key on names and never on positional order.
 """
@@ -38,6 +39,7 @@ class EngineConfig:
     device: str = "cuda"
     backend: str | None = None
     m_max: int = 512
+    window: int = 8  # supersteps per launched window (elastic / serving)
     collect_subgraphs: bool = False
 
     def replace(self, **kw) -> "EngineConfig":

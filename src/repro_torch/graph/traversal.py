@@ -37,7 +37,11 @@ work.
 ``run`` executes one batched traversal of depth ``m_max`` and returns numpy
 leaves; ``init_state`` / ``run_window`` run it resumably, leaving the
 carried state on the device between windows; ``backfill_rows`` swaps batch
-rows at a window boundary.
+rows at a window boundary.  ``state_index_of_vertex``, ``gather_global``
+and ``device_of_part`` are the state-layout accessors the elastic executor
+and the session read (identity and ``None`` here: the dense engine keeps
+state in global vertex order on one device).  ``make_superstep_fn`` is the
+one-superstep equivalence oracle.
 """
 
 from __future__ import annotations
@@ -135,6 +139,71 @@ def _part_sums(x: torch.Tensor, dev: _DeviceArrays) -> torch.Tensor:
     cs = torch.nn.functional.pad(cs, (1, 0))
     at = cs.index_select(1, dev.part_bounds)
     return (at[:, 1:] - at[:, :-1]).to(torch.int32)
+
+
+class SuperstepResult(NamedTuple):
+    dist: torch.Tensor  # [n] float32, updated distances
+    next_frontier: torch.Tensor  # [n] bool, vertices improved by remote messages
+    edges_examined: torch.Tensor  # [P] int32, local edges scanned this superstep
+    verts_processed: torch.Tensor  # [P] int32, frontier vertices processed
+    msgs_sent: torch.Tensor  # [P] int32, remote messages emitted per src partition
+    inner_iters: torch.Tensor  # [] int32, local-closure iterations
+
+
+def make_superstep_fn(pg: PartitionedGraph, *, config: EngineConfig | None = None):
+    """The one-superstep SSSP function over ``pg`` on ``config.device``:
+    ``(dist [n], frontier [n]) -> SuperstepResult``, the host loop outside.
+
+    The equivalence oracle of the JAX package's ``make_superstep_fn``: the
+    local closure to fixpoint, then the remote exchange, with per-edge
+    counters.  It is written apart from the engine's window program -- its
+    reductions are ``scatter_reduce`` and ``index_add_`` over every edge,
+    never the relax kernel nor the engine's per-vertex counters -- so the
+    engine can be held against it.
+    """
+    device = resolve_device((config or EngineConfig()).device)
+    layout = partitioned_edge_layout(pg)
+    n, n_parts = pg.graph.n_vertices, pg.n_parts
+
+    def on_device(a, dtype):
+        return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+
+    i64 = torch.int64
+    lsrc, ldst = on_device(layout.local.src, i64), on_device(layout.local.dst, i64)
+    rsrc, rdst = on_device(layout.remote.src, i64), on_device(layout.remote.dst, i64)
+    lw = on_device(layout.local.weights, torch.float32)
+    rw = on_device(layout.remote.weights, torch.float32)
+    lpart, rpart = on_device(layout.local_part, i64), on_device(layout.remote_src_part, i64)
+    vpart = on_device(pg.part_of_vertex, i64)
+
+    def seg_min(base, dst, cand):
+        return base.scatter_reduce(0, dst, cand, reduce="amin", include_self=True)
+
+    def seg_count(mask, part):
+        zeros = torch.zeros(n_parts, dtype=torch.int32, device=device)
+        return zeros.index_add_(0, part, mask.to(torch.int32))
+
+    def superstep(dist: torch.Tensor, frontier: torch.Tensor) -> SuperstepResult:
+        d, fr, touched = dist, frontier, frontier
+        we = torch.zeros(n_parts, dtype=torch.int32, device=device)
+        wv = torch.zeros_like(we)
+        iters = 0
+        while bool(fr.any()):
+            active_e = fr[lsrc]
+            new_d = seg_min(d, ldst, torch.where(active_e, d[lsrc] + lw, torch.inf))
+            improved = new_d < d
+            we = we + seg_count(active_e, lpart)
+            wv = wv + seg_count(fr, vpart)
+            d, fr, touched, iters = new_d, improved, touched | improved, iters + 1
+        # -- remote exchange at the superstep boundary ----------------------
+        active_e = touched[rsrc]
+        new_dist = seg_min(d, rdst, torch.where(active_e, d[rsrc] + rw, torch.inf))
+        return SuperstepResult(
+            new_dist, new_dist < d, we, wv, seg_count(active_e, rpart),
+            torch.tensor(iters, dtype=torch.int32, device=device),
+        )
+
+    return superstep
 
 
 class TraversalResult(NamedTuple):
@@ -244,6 +313,29 @@ class TraversalEngine:
                     pg.subgraph_of_vertex.astype(np.int64), device=self.device
                 ),
             )
+
+    # -- state layout (identity on the dense engine) ------------------------
+
+    @property
+    def device_of_part(self) -> None:
+        """The active partition -> device map: ``None`` on the dense engine,
+        where one device computes every partition (a map comes with the
+        multi-GPU engine)."""
+        return None
+
+    @property
+    def state_index_of_vertex(self) -> np.ndarray:
+        """[n] index of each vertex in the carried state's trailing axis:
+        the identity on the dense engine."""
+        return np.arange(self.n, dtype=np.int64)
+
+    def gather_global(self, state_rows) -> np.ndarray:
+        """Carried state rows ``[..., n]`` (a tensor on any device, or host
+        numpy) in global vertex order on the host: the identity on the
+        dense engine."""
+        if isinstance(state_rows, torch.Tensor):
+            return _to_host(state_rows)
+        return np.asarray(state_rows)
 
     def _any(self, t: torch.Tensor) -> bool:
         """One host read of ``t.any()`` -- a loop condition."""

@@ -20,7 +20,8 @@ yet or that was edited in place since, the partition kernel, whose tile
 starts it keeps while that tensor lives) on the current stream and counts
 each such call once in ``relax_rowptr.launches``, and per template instantiation
 (``"float32-min"``, ``"int32-min"``, ``"float32-sum"``, ``"int32-sum"``) in
-``relax_rowptr.variant_launches``.
+``relax_rowptr.variant_launches``; the calls that also ran the partition
+kernel are counted in ``relax_rowptr.partition_launches``.
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ class RelaxKernel(CudaKernel):
 
     ``launches`` counts kernel launches and nothing else, and
     ``variant_launches`` splits that count by template instantiation;
+    ``partition_launches`` counts the calls that split a new ``row_ptr``;
     ``build_seconds`` and ``build_log`` record the first-use build.
     """
 
@@ -79,6 +81,7 @@ class RelaxKernel(CudaKernel):
     ):
         super().__init__(source, build_dir, defines)
         self.variant_launches = dict.fromkeys(VARIANTS, 0)
+        self.partition_launches = 0
         # row_ptr -> (its version, n, e, tile starts): the split depends on
         # row_ptr alone, so a layout's later calls skip the partition kernel
         self._starts = WeakTensorKeyDictionary()
@@ -168,6 +171,7 @@ class RelaxKernel(CudaKernel):
         self._check_rc(rc, "relax kernel")
         if partition:
             self._starts[row_ptr] = (key, starts)
+            self.partition_launches += 1
         self.launches += 1
         self.variant_launches[variant] += 1
         return out

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card, against their plain versions: relax,
-segment sum and flash attention.
+segment sum and flash attention; and the elastic executor and the serving
+loop on the card, whose reports must equal the ``torch`` backend's.
 
 Every test here needs an NVIDIA card with ``nvcc`` and skips with a reason
 elsewhere.  The file imports neither JAX nor the JAX package, so it runs on
@@ -15,18 +16,25 @@ exactly 0).  Flash attention: ``1e-5`` in float32 (both in float32 FMAs,
 TF32 off), ``2e-2`` in bfloat16 (the kernel rounds P to bfloat16 for the
 PV product, as the TPU kernel does), the JAX tests' tolerances; bfloat16
 also within ``bf16_tolerance_ratio``'s bound, which scales with each row.
+Executor and service: BFS state bit-identical, reports equal field by field
+(except wall seconds), as on the CPU against the JAX package.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.convert import partitioned_graph_from_numpy
+from repro_torch.core import STRATEGIES, TimeFunction, predict_time_function
+from repro_torch.core.elastic import ElasticBSPExecutor
+from repro_torch.graph import EdgeDeltaBuffer, bsp
 from repro_torch.graph import bfs_grow_partition, rmat_graph, weighted
 from repro_torch.graph.config import EngineConfig
-from repro_torch.graph.program import BUILTIN_PROGRAMS
+from repro_torch.graph.program import BUILTIN_PROGRAMS, BfsProgram
 from repro_torch.graph.structs import dst_sorted_layout, row_ptr_for
-from repro_torch.graph.traversal import TraversalEngine, reference_pagerank
+from repro_torch.graph.traversal import TraversalEngine, reference_bfs, reference_pagerank
 from repro_torch.kernels.bfs_relax import ops
 from repro_torch.kernels.bfs_relax.kernel import relax_rowptr
 from repro_torch.kernels.bfs_relax.ref import relax_reference
@@ -44,6 +52,8 @@ from repro_torch.kernels.segment_sum import (
     sorted_segment_sum,
 )
 from repro_torch.kernels.segment_sum.kernel import segment_levels
+from repro_torch.serve import ServiceConfig, TraversalService, poisson_trace
+from repro_torch.serve.batcher import MicroBatcher
 
 SHAPES = {
     # name: (S, n, e, dst): "uniform" ids, zipf(1.5) "powerlaw" ids, or
@@ -56,6 +66,8 @@ SHAPES = {
     "single_edge": (3, 40, 1, "uniform"),
     "hub_2m": (2, 300_000, 1_000_000, "hub_2m"),
     "powerlaw": (2, 500_000, 3_000_000, "powerlaw"),
+    # the serving path's batch of 8 rows
+    "serve_batch": (8, 200_000, 1_500_000, "powerlaw"),
 }
 VARIANTS = [("min", np.float32), ("min", np.int32), ("sum", np.float32)]
 VARIANT_IDS = ["min-f32", "min-i32", "sum-f32"]
@@ -345,3 +357,98 @@ def test_flash_unaligned_bf16_takes_the_mma_kernel(cuda_device):
     assert flash_fwd.variant_launches["bfloat16-mma"] == before + 1
     exact = attention_rows(q, k, v, 0, s, causal=True, window=None)
     assert bf16_tolerance_ratio(out, exact) <= 1.0
+
+
+def _execution_fields(rep):
+    out = {f.name: getattr(rep, f.name) for f in dataclasses.fields(rep)}
+    del out["wall_seconds"]
+    out["actual_tau"] = out["actual_tau"].tau
+    out["cost"] = dataclasses.asdict(out["cost"])
+    return out
+
+
+def _assert_fields_equal(a: dict, b: dict):
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], np.ndarray):
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        else:
+            assert a[k] == b[k], k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutate", [False, True], ids=["static-graph", "mutations"])
+@pytest.mark.parametrize("strategy", sorted(STRATEGIES))
+def test_elastic_run_on_cuda_matches_torch_backend(cuda_device, strategy, mutate):
+    pg = bfs_grow_partition(rmat_graph(10, 8, seed=3), 8, seed=1)
+    _, trace = bsp.run_sssp(pg, 0, config=EngineConfig(device="cuda"))
+    tf = TimeFunction.from_trace(trace)
+    plan = STRATEGIES[strategy](tf)
+    muts = None
+    if mutate:
+        rng = np.random.default_rng(0)
+        buf = EdgeDeltaBuffer()
+        buf.insert_many(rng.integers(0, pg.graph.n_vertices, 64),
+                        rng.integers(0, pg.graph.n_vertices, 64))
+        muts = [(1, buf)]
+    reports = []
+    for backend in ("cuda", "torch"):
+        cfg = EngineConfig(device="cuda", backend=backend, window=1 if mutate else 3)
+        ex = ElasticBSPExecutor(pg, program=BfsProgram(), tau_scale=21.0 / tf.t_min(),
+                                config=cfg)
+        before = relax_rowptr.launches
+        reports.append(ex.run(0, plan, strategy_fn=STRATEGIES[strategy], replan=True,
+                              sketch=predict_time_function(pg, 0)[0], mutations=muts))
+        assert (relax_rowptr.launches > before) == (backend == "cuda")
+    _assert_fields_equal(*(_execution_fields(r) for r in reports))
+    if mutate:
+        assert reports[0].mutations_applied == 1
+        np.testing.assert_array_equal(reports[0].dist, reference_bfs(ex.pg, 0))
+    else:
+        np.testing.assert_array_equal(reports[0].dist, reference_bfs(pg, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_batch", [4, 8])
+def test_served_trace_on_cuda_matches_torch_backend(cuda_device, monkeypatch, s_batch):
+    """Equal reports, and every completed query's state row (kept as its
+    batch row retires; its last retirement is its completion) equal to the
+    host BFS from its source."""
+    rows = {}
+    retire = MicroBatcher.retire
+
+    def keep(self, row):
+        rec = retire(self, row)
+        rows[(self.engine.backend, rec.qid)] = self.state.dist[row].cpu().numpy()
+        return rec
+
+    monkeypatch.setattr(MicroBatcher, "retire", keep)
+    pg = bfs_grow_partition(rmat_graph(10, 8, seed=3), 8, seed=1)
+    cfg = ServiceConfig(s_batch=s_batch, window=4, tau_scale=1e3)
+    trace = poisson_trace(24, 20.0, pg.graph.n_vertices, seed=5)
+    reports = [
+        TraversalService(pg, config=cfg,
+                         engine_config=EngineConfig(device="cuda", backend=b)).run(trace)
+        for b in ("cuda", "torch")
+    ]
+    assert reports[0].asdict() == reports[1].asdict()
+    assert reports[0].completed == 24
+    for q in reports[0].queries:
+        np.testing.assert_array_equal(rows[("cuda", q.qid)], reference_bfs(pg, q.source))
+        np.testing.assert_array_equal(rows[("torch", q.qid)], rows[("cuda", q.qid)])
+
+
+@pytest.mark.cuda
+def test_serving_lane_splits_each_layout_once(cuda_device):
+    """Across two traces of one lane the relax kernel runs every window,
+    and its partition kernel never again after the lane's first window."""
+    pg = bfs_grow_partition(rmat_graph(10, 8, seed=4), 8, seed=1)
+    svc = TraversalService(pg, config=ServiceConfig(s_batch=4, window=4, tau_scale=1e3),
+                           engine_config=EngineConfig(device="cuda", backend="cuda"))
+    svc.run(poisson_trace(12, 50.0, pg.graph.n_vertices, seed=1))
+    launches, splits = relax_rowptr.launches, relax_rowptr.partition_launches
+    svc.run(poisson_trace(12, 0.5, pg.graph.n_vertices, seed=2))
+    assert relax_rowptr.launches > launches
+    assert relax_rowptr.partition_launches == splits
+    assert len(pg.__dict__["_traversal_engines"]) == 1

@@ -86,3 +86,29 @@ def test_chip_smoke_alone_fails(tmp_path):
     proc = _run_smoke(tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_entry_points_refuse_a_cuda_config_without_cuda(tmp_path):
+    """No quiet CPU run: the executor, the session, the service, the
+    one-superstep oracle and the workloads raise on the default (CUDA)
+    config where there is no card."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the refusal cannot show here")
+    from repro_torch.core.elastic import ElasticBSPExecutor
+    from repro_torch.data import paper_workloads
+    from repro_torch.graph import bfs_grow_partition, open_session, rmat_graph
+    from repro_torch.graph.traversal import make_superstep_fn
+    from repro_torch.serve import TraversalService
+
+    pg = bfs_grow_partition(rmat_graph(6, 4, seed=0), 2, seed=0)
+    entries = {
+        "executor": lambda: ElasticBSPExecutor(pg),
+        "session": lambda: open_session(pg),
+        "service": lambda: TraversalService(pg),
+        "superstep": lambda: make_superstep_fn(pg),
+        "workloads": lambda: paper_workloads(("LIVJ/8P",), cache_dir=str(tmp_path)),
+    }
+    for name, entry in entries.items():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
+        assert not list(tmp_path.iterdir()), f"{name} wrote before refusing"
