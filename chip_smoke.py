@@ -70,7 +70,7 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 ``repartition=`` variant (on a cut graph where one
                 repartition pass over LIVJ/8P would take over 30 s), which
                 must move vertices.
-  11. serve  -- ``TraversalService`` answers 64 BFS queries (8 rows a
+  11. serve  -- ``TraversalService`` answers 32 BFS queries (8 rows a
                 batch, 8 supersteps a window): first all at t = 0 on all 8
                 VMs, which gives the highest rate mu it sustains, then Poisson
                 arrivals at 0.25 mu and 0.9 mu, elastic and static; launch
@@ -86,8 +86,33 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
   13. relax_entries -- the two min-only entries (``bfs_relax_csr``,
                 ``bfs_relax``) at S=1 over the local edges, each against the
                 ``torch`` backend, timed beside the kernel alone.
+  14. mesh   -- the multi-GPU engine (``repro_torch.dist``): LIVJ/8P on D = 8
+                ranks (one partition each) and D = 2 (four each), processes
+                that share the one card over gloo (NCCL refuses two ranks on
+                one card), which copies the CUDA payloads through the host.
+                The parent shares the graph and its edge layout as mapped
+                files; each rank builds only its own block of the mesh
+                layout.  Every rank runs BFS from the slice's 4 sources, WCC
+                and PageRank through ``TraversalEngine.run``, with its launch
+                counts at 0 just before and read just after, and at D = 8 a
+                BFS with the hub mirrored.  Held: state and ``[S, m, P]``
+                counters equal to the dense engine's on the card (PageRank
+                within rtol 1e-5), ``wire_msgs`` at most the active remote
+                edges in every superstep and no more mirrored, every
+                superstep's collectives equal to the program's signature,
+                the kernel launched on every rank that holds edges, gloo
+                taking CUDA tensors in all four collectives.  Then, in the
+                same D = 8 launch, ``ElasticBSPExecutor`` with
+                ``relayout=True`` (one superstep a window) under the elastic
+                phase's FFD plan: its report equal to the dense executor's
+                apart from the physical ledger, shards moved between ranks,
+                re-layouts made, residency on the plan; cut to scale 17
+                only where its per-rank rebuilds are projected past the
+                time limit.  Also the relax kernel at the hub rank's D = 8
+                planes.
 
-Each phase prints one JSON line.  Then come the ``{"kernels": [...]}``
+Each phase prints one JSON line, with its host-clock ``phase_seconds``.
+Then come the ``{"kernels": [...]}``
 line, the card's ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
 exits non-zero.  Without CUDA it exits non-zero at once and prints no
@@ -106,8 +131,10 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -124,12 +151,21 @@ from repro_torch.core.repartition import (  # noqa: E402
     RepartitionConfig,
     partition_penalty,
 )
+from repro_torch.core.placement import device_of_vm  # noqa: E402
+from repro_torch.dist import (  # noqa: E402
+    load_shared_graph,
+    partition_mesh,
+    run_ranks,
+    share_graph,
+)
 from repro_torch.graph import EdgeDeltaBuffer, bsp  # noqa: E402
 from repro_torch.graph.config import EngineConfig  # noqa: E402
 from repro_torch.graph.generators import rmat_graph, weighted  # noqa: E402
 from repro_torch.graph.partition import (  # noqa: E402
     _bfs_hops,
     bfs_grow_partition,
+    contiguous_device_map,
+    mesh_rank_layout,
     partitioned_edge_layout,
 )
 from repro_torch.graph.program import (  # noqa: E402
@@ -199,7 +235,9 @@ MUTATION_INSERTS = 4096
 #: vertices: the default 256 are the R-MAT hubs, whose neighbours mostly
 #: share their partition, so random inserts would move none of them
 REPARTITION_CUT_SCALE, REPARTITION_MAX_S, REPARTITION_CANDIDATES = 16, 30.0, 16384
-SERVE_QUERIES, SERVE_BATCH = 64, 8
+#: the serving path's depth (queries a run) is cut to keep the whole script
+#: near its time limit
+SERVE_QUERIES, SERVE_BATCH = 32, 8
 #: completed serving queries whose state rows are also held against the host
 #: BFS (every completed row is held against the ``torch`` backend's)
 SERVE_HOST_CHECKS = 2
@@ -213,6 +251,27 @@ SERVE_RATE_FRACTIONS = (0.25, 0.9)
 #: plane, product, two kernel outputs, the update's multiply and add), so
 #: after 20 iterations a vertex is within 20 * 7 * 2**-24 = 8.3e-6.
 PAGERANK_RTOL, PAGERANK_ATOL = 1e-5, 1e-9
+
+#: the mesh phase: LIVJ/8P on D ranks that share the card (gloo; NCCL
+#: refuses two ranks on one card).  D = 8 is one partition per rank, the
+#: paper's 8 VMs; D = 2 holds four partitions per rank
+MESH_SIZES = (8, 2)
+#: a launch of D ranks is killed, and the script fails, past this many seconds
+MESH_LAUNCH_TIMEOUT_S = 900.0
+#: the mirrored BFS run's hub threshold (cross-partition in-degree) at the
+#: full size; halved with each halving of a ``--scale`` cut
+MESH_MIRROR_DEGREE = 1 << 16
+#: the executor run on the mesh (relayout=True, one superstep a window, so
+#: the layout can follow every planned row) rebuilds every rank's own block
+#: for each planned map; it is cut to this scale only when that is projected
+#: past MESH_EXECUTOR_MAX_S
+MESH_EXECUTOR_CUT_SCALE, MESH_EXECUTOR_MAX_S = 17, 120.0
+#: the swap run trades ranks 0 and 1's partitions after this many supersteps
+MESH_SWAP_AFTER = 2
+#: the report fields of the executor's physical ledger: a mesh run may
+#: differ from the dense run there and nowhere else
+PHYSICAL_FIELDS = ("device_moves", "device_move_bytes", "residency", "relayouts",
+                   "relayouts_skipped")
 
 KERNEL_SOURCE = "src/repro_torch/kernels/bfs_relax/csrc/relax.cu"
 KERNEL_REPLACES = "src/repro/kernels/bfs_relax/kernel.py:138"
@@ -268,8 +327,17 @@ MAIN_VARIANTS = (
 PATH_VARIANT = "float32-min"
 
 
+#: each phase's host-clock seconds, from the previous phase's line to its own
+PHASE_SECONDS: dict = {}
+_last_emit = [time.perf_counter()]
+
+
 def _emit(phase: str, payload: dict) -> None:
-    print(json.dumps({"phase": phase, **payload}), flush=True)
+    now = time.perf_counter()
+    PHASE_SECONDS[phase] = now - _last_emit[0]
+    _last_emit[0] = now
+    print(json.dumps({"phase": phase, "phase_seconds": PHASE_SECONDS[phase], **payload}),
+          flush=True)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -1517,15 +1585,544 @@ def phase_profile(pg, device, seed: int) -> dict:
     }
 
 
+# -- the mesh phase: the multi-GPU engine on ranks that share the card ----------
+
+
+class _HostMemory:
+    """The machine's host memory in use over a block, at its peak per stage
+    (sampled from ``/proc/meminfo`` every 0.2 s by a thread), and this
+    process's resident size at the report."""
+
+    def __enter__(self):
+        import threading
+
+        self.total = self._meminfo()["MemTotal"]
+        self.least_available = self._meminfo()["MemAvailable"]
+        self.marks: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    @staticmethod
+    def _meminfo() -> dict:
+        with open("/proc/meminfo") as f:
+            return {line.split(":")[0]: int(line.split()[1]) * 1024 for line in f}
+
+    def _sample(self):
+        while not self._stop.wait(0.2):
+            self.least_available = min(self.least_available, self._meminfo()["MemAvailable"])
+
+    def mark(self, stage: str) -> None:
+        """Record the peak in use up to the end of ``stage``, and reset it."""
+        self.marks.append((stage, self.total - self.least_available))
+        self.least_available = self._meminfo()["MemAvailable"]
+
+    def report(self) -> dict:
+        return {
+            "total_bytes": self.total,
+            "peak_in_use_bytes": max([self.total - self.least_available]
+                                     + [b for _, b in self.marks]),
+            "peak_in_use_by_stage": dict(self.marks),
+            "parent_rss_bytes": _rss(),
+        }
+
+
+def _gloo_cuda_probe() -> dict:
+    """Whether this PyTorch's gloo takes CUDA tensors in each collective the
+    engine runs (even and uneven all-to-all, all-reduce, all-gather), with
+    the results checked.  The engine hands gloo its CUDA tensors as they lie
+    (``PartitionMesh.transport``); a refusal here fails the mesh phase."""
+    import torch.distributed as dist
+
+    world, me = dist.get_world_size(), dist.get_rank()
+    x = torch.arange(2 * world, dtype=torch.float32, device="cuda") + 100 * me
+    uneven_send = [j + 1 for j in range(world)]  # j + 1 rows to rank j
+    uneven_recv = [me + 1] * world
+    v = torch.full((sum(uneven_send),), float(me), device="cuda")
+
+    def a2a():
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        want = torch.tensor([100.0 * j + 2 * me + k for j in range(world) for k in (0, 1)])
+        return torch.equal(out.cpu(), want)
+
+    def a2a_v():
+        out = torch.empty(sum(uneven_recv), device="cuda")
+        dist.all_to_all_single(out, v, uneven_recv, uneven_send)
+        want = torch.tensor([float(j) for j in range(world) for _ in range(me + 1)])
+        return torch.equal(out.cpu(), want)
+
+    def reduce():
+        y = x.clone()
+        dist.all_reduce(y, op=dist.ReduceOp.MAX)
+        return torch.equal(y.cpu(), torch.arange(2 * world, dtype=torch.float32)
+                           + 100 * (world - 1))
+
+    def gather():
+        out = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(out, x)
+        return all(torch.equal(o.cpu(), x.cpu() - 100 * me + 100 * j) for j, o in enumerate(out))
+
+    out = {}
+    for name, fn in (("all_to_all_single", a2a), ("all_to_all_single_uneven", a2a_v),
+                     ("all_reduce", reduce), ("all_gather", gather)):
+        try:
+            out[name] = "ok" if fn() else "wrong result"
+        except (RuntimeError, ValueError, TypeError) as exc:  # the probe's answer
+            out[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+    return out
+
+
+def _rss() -> int:
+    """This process's resident host memory now, in bytes (``/proc/self/
+    statm``; a rank samples it after each step, since ``ru_maxrss`` carries
+    the parent's peak across the fork)."""
+    import os
+
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _rank_config(mesh, **kw) -> EngineConfig:
+    """A rank's engine config: the CUDA kernel on the rank's card (the
+    plain version only where the ranks run on the CPU, as in a rehearsal
+    without a card)."""
+    kind = mesh.device.type
+    return EngineConfig(device=kind, backend="cuda" if kind == "cuda" else "torch", mesh=mesh,
+                        **kw)
+
+
+def _mesh_run(pg, mesh, prog, sources, mirror_degree) -> dict:
+    """One traversal on this rank through ``TraversalEngine.run``, with the
+    kernel's launch counts at 0 just before it and read just after."""
+    import torch.distributed as dist
+
+    cfg = _rank_config(mesh, m_max=MAX_SUPERSTEPS, mirror_degree=mirror_degree)
+    t0 = time.perf_counter()
+    eng = get_engine(pg, program=prog, config=cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_rss = _rss()
+    mprog = eng._mesh_prog
+    ml = mprog.layout
+    edges = {kind: ml.plane(kind)[2] for kind in ("local", "wire")}
+    edges["mirror"] = ml.plane("mirror")[2] if ml.m_pad else 0
+    dist.barrier()
+    # -- the path, with every launch count at 0 just before it -------------
+    _zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    stats0, reads0, pulls0 = mesh.stats.snapshot(), mprog.host_reads, eng.bulk_pulls
+    t0 = time.perf_counter()
+    res = eng.run(sources)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, variants = relax_rowptr.launches, dict(relax_rowptr.variant_launches)
+    # -- end of the path -----------------------------------------------------
+    stats1 = mesh.stats.snapshot()
+    run = {
+        "wall_s": wall, "setup_s": setup_s,
+        "host_reads": mprog.host_reads - reads0, "bulk_pulls": eng.bulk_pulls - pulls0,
+        "launches": launches, "variant_launches": variants, "plane_edges": edges,
+        "collective_s": stats1["seconds"] - stats0["seconds"],
+        "collective_calls": {k: v - stats0["calls"].get(k, 0) for k, v in stats1["calls"].items()},
+        "collective_bytes": {k: v - stats0["bytes"].get(k, 0) for k, v in stats1["bytes"].items()},
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "host_rss_bytes": (setup_rss, _rss()),
+        "signature": mprog.signature, "record": mprog.last_window_collectives,
+        "pads": {k: int(getattr(ml, k)) for k in ("n_pad", "e_local_pad", "e_remote_pad", "w_pad",
+                                                   "e_mirror_pad", "m_pad")},
+    }
+    if mesh.rank == 0:
+        run["result"] = {f: np.asarray(getattr(res, f)) for f in res._fields if f != "sg_active"}
+    pg.__dict__.pop("_traversal_engines", None)
+    del eng, mprog, res
+    torch.cuda.empty_cache()
+    return run
+
+
+def _mesh_swap_run(pg, mesh, sources) -> dict:
+    """BFS in two windows on this rank, ranks 0 and 1 trading their
+    partitions in between: a pad-stable re-layout, rebuilt from the active
+    block (reusing what the swap leaves alone), with the state moved
+    between ranks.  Returns the swap's build record and, on rank 0, the
+    gathered state."""
+    cfg = _rank_config(mesh, m_max=MAX_SUPERSTEPS)
+    eng = get_engine(pg, program=BfsProgram(), config=cfg)
+    dmap = eng.device_of_part
+    swapped = np.where(dmap == 0, 1, np.where(dmap == 1, 0, dmap)).astype(np.int32)
+    t0 = time.perf_counter()
+    first = eng.run_window(eng.init_state(sources), MESH_SWAP_AFTER)
+    rest = eng.run_window(first.state, MAX_SUPERSTEPS, device_of_part=swapped)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"wall_s": wall, "build": eng._mesh_prog.relayouts[-1],
+           "done": bool(np.asarray(rest.done).all()),
+           "map_after": eng.device_of_part.tolist()}
+    dist = eng.gather_global(rest.state.dist)
+    if mesh.rank == 0:
+        out["dist"] = dist
+    pg.__dict__.pop("_traversal_engines", None)
+    del eng, first, rest
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_rank(shared: str, stages: list, probe: bool, swap_sources: list | None,
+               planes: tuple | None, executor: dict | None) -> dict:
+    """One rank of the mesh phase, in its own process: map the graph the
+    parent shared, build this rank's own block of each layout, run the
+    traversals (and, at D = 8, the relax kernel at the hub rank's planes, a
+    swap re-layout and the executor, unless its rebuilds are projected past
+    the limit)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    pg = load_shared_graph(shared)
+    mesh = partition_mesh()
+    if mesh.device.type == "cuda":
+        relax_rowptr.load()  # the parent built it: same source and flags
+    else:  # a rehearsal on the CPU: no card to wait for or to measure
+        for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+            setattr(torch.cuda, name, lambda *a, **k: None)
+        torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    out = {"rank": mesh.rank, "mesh": mesh.describe(), "load_s": time.perf_counter() - t0,
+           "load_rss_bytes": _rss(), "layouts": {}, "runs": {}}
+    if probe and mesh.device.type == "cuda":
+        out["gloo_cuda_probe"] = _gloo_cuda_probe()
+        if any(v != "ok" for v in out["gloo_cuda_probe"].values()):
+            raise RuntimeError(f"gloo on CUDA tensors: {out['gloo_cuda_probe']}")
+    dmap = contiguous_device_map(pg.n_parts, mesh.world_size)
+    for mirror_degree, jobs in stages:
+        t0 = time.perf_counter()
+        ml = mesh_rank_layout(pg, dmap, mesh.world_size, mesh.rank, mirror_degree=mirror_degree,
+                              mesh=mesh)
+        out["layouts"][str(mirror_degree)] = {
+            "seconds": time.perf_counter() - t0, "rss_bytes": _rss(),
+            "host_bytes": sum(v.nbytes for v in vars(ml).values() if isinstance(v, np.ndarray)),
+        }
+        if planes is not None and mirror_degree is None:
+            # the kernel at the hub rank's planes, timed while the others wait
+            # (ranks on the CPU, a rehearsal, have no kernel to time)
+            dist.barrier()
+            if mesh.rank == planes[0] and mesh.device.type == "cuda":
+                out["kernel_planes"] = _mesh_plane_cases(ml, mesh.device, planes[1])
+            dist.barrier()
+        del ml
+        for name, prog, sources in jobs:
+            out["runs"][name] = _mesh_run(pg, mesh, prog, sources, mirror_degree)
+    if swap_sources is not None:
+        out["swap"] = _mesh_swap_run(pg, mesh, swap_sources)
+    if executor is not None:
+        # every rank rebuilds its own block for each planned map: projected
+        # at the slowest rank's first build
+        build_s = mesh.all_reduce(torch.tensor([max(
+            v["seconds"] for v in out["layouts"].values())], device=mesh.device), "max").item()
+        projected = executor["maps"] * build_s
+        if projected > executor["max_s"]:
+            out["executor"] = {"cut": True, "projected_s": projected, "build_s": build_s}
+            return out
+        cfg = _rank_config(mesh, window=1, relayout=True)
+        _zero_launch_counts()
+        stats0 = mesh.stats.snapshot()
+        ex, rep, line = _execute(pg, cfg, executor["tau"], executor["plan"],
+                                 strategy_fn=STRATEGIES["ffd"], replan=True,
+                                 sketch=executor["sketch"])
+        line["collective_s"] = mesh.stats.snapshot()["seconds"] - stats0["seconds"]
+        line["relayout_builds"] = ex.engine._mesh_prog.relayouts
+        out["executor"] = {"cut": False, "projected_s": projected, "build_s": build_s,
+                           "line": line, "report": _report_fields(rep),
+                           "host_rss_bytes": _rss(),
+                           "variant_launches": dict(relax_rowptr.variant_launches)}
+    return out
+
+
+def _mesh_plane_cases(ml, device, seed: int) -> list:
+    """The relax kernel at one rank's D = 8 shapes (float32 min, S = 4: the
+    BFS batch), its local plane and its wire plane as the engine hands them
+    over -- padding included -- against the plain version."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 8)
+    cases = []
+    for kind in ("local", "wire"):
+        rows, n_seg, n_valid = ml.plane(kind)
+        row_ptr = torch.as_tensor(ml.row_ptr(kind), device=device)
+        dst = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=device)
+        args = _random_case(gen, BFS_SOURCES, n_seg, int(rows.shape[0]), torch.float32, "min",
+                            device, row_ptr=row_ptr, dst=dst)
+        case = _hold_case(f"mesh-D8-rank{ml.rank}-{kind}", "float32-min", "min", *args, reps=10)
+        case["valid_edges"] = n_valid
+        cases.append(case)
+        del args
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _mesh_executor_plan(pg, trace, pred_tf, device) -> dict:
+    """The FFD plan the elastic phase runs (planned from ``trace`` and the
+    prediction), how many layouts ``relayout=True`` visits under it on 8
+    ranks, and the dense executor's report under it (one superstep a
+    window)."""
+    tau = LIVJ_T_MIN_S / TimeFunction.from_trace(trace).t_min()
+    sketch = TimeFunction(pred_tf.tau * tau)
+    plan = STRATEGIES["ffd"](sketch)
+    # one map per planned row that moves a placed partition to another rank
+    cur, maps = contiguous_device_map(pg.n_parts, MESH_SIZES[0]), 0
+    for row in plan.vm_of:
+        target = cur.copy()
+        placed = row >= 0
+        target[placed] = device_of_vm(row[placed], MESH_SIZES[0])
+        if not np.array_equal(target, cur):
+            maps, cur = maps + 1, target
+    cfg = EngineConfig(device=str(device), backend="cuda", window=1)
+    _, dense, dense_line = _execute(pg, cfg, tau, plan, strategy_fn=STRATEGIES["ffd"],
+                                    replan=True, sketch=sketch)
+    # only a graph above the cut scale is ever cut
+    max_s = MESH_EXECUTOR_MAX_S if np.log2(pg.graph.n_vertices) > MESH_EXECUTOR_CUT_SCALE else np.inf
+    return {"args": {"tau": tau, "plan": plan, "sketch": sketch, "maps": maps, "max_s": max_s},
+            "dense": dense, "dense_wall_s": dense_line["wall_s"]}
+
+
+def _check_mesh_runs(results, dense: dict, d_n: int) -> dict:
+    """The D-rank traversals against the dense engine on the card; returns
+    their summary for the ``mesh`` line."""
+    out = {}
+    rank0 = results[0]["runs"]
+    for name, runs in ((n, [r["runs"][n] for r in results]) for n in rank0):
+        base = name.removesuffix("-mirror")
+        mesh_res, ref = rank0[name]["result"], dense[base]
+        for f in ("dist", "frontier", "n_supersteps", "edges_examined", "verts_processed",
+                  "msgs_sent", "inner_iters"):
+            a, b = mesh_res[f], np.asarray(getattr(ref, f))
+            same = a.dtype == b.dtype and a.shape == b.shape and (
+                np.allclose(a, b, rtol=PAGERANK_RTOL, atol=PAGERANK_ATOL)
+                if base == "pagerank" and f == "dist" else np.array_equal(a, b))
+            _check(same, f"mesh D={d_n} {name}: {f} differs from the dense engine's")
+        wire, sent = mesh_res["wire_msgs"], mesh_res["msgs_sent"].sum(axis=2)
+        _check(bool((wire <= sent).all()) and wire.sum() > 0,
+               f"mesh D={d_n} {name}: wire_msgs above the active remote edges in a superstep")
+        for r, run in enumerate(runs):
+            for step in run["record"]:
+                iters = step["closure_iters"]
+                want = dict(run["signature"], pmax_closure=run["signature"]["pmax_closure"] * iters)
+                _check({k: v for k, v in step.items() if k != "closure_iters"} == want,
+                       f"mesh D={d_n} {name} rank {r}: collectives {step} off the signature")
+            # (ranks on the CPU, a rehearsal, run the plain version)
+            holds = sum(run["plane_edges"].values()) > 0 and results.devices[r] != "cpu"
+            _check(not holds or run["launches"] > 0,
+                   f"mesh D={d_n} {name} rank {r} holds edges but launched the relax kernel "
+                   "no time")
+        out[name] = {
+            "S": int(mesh_res["dist"].shape[0]),
+            "supersteps": int(mesh_res["n_supersteps"].max()),
+            "wire_msgs": int(wire.sum()), "active_remote_edges": int(sent.sum()),
+            "wall_s": max(r["wall_s"] for r in runs),
+            "engine_setup_s": max(r["setup_s"] for r in runs),
+            "host_reads": runs[0]["host_reads"], "bulk_pulls": runs[0]["bulk_pulls"],
+            "collective_share": [r["collective_s"] / r["wall_s"] for r in runs],
+            "collective_calls": runs[0]["collective_calls"],
+            "collective_bytes": [r["collective_bytes"] for r in runs],
+            "peak_device_bytes": [r["peak_device_bytes"] for r in runs],
+            "host_rss_bytes_after_setup_and_run": [r["host_rss_bytes"] for r in runs],
+            "launches_by_rank": [r["launches"] for r in runs],
+            "plane_edges_by_rank": [r["plane_edges"] for r in runs],
+            "pads": runs[0]["pads"],
+            "collectives_per_superstep": runs[0]["record"][:2],
+        }
+    return out
+
+
+def phase_mesh(pg, runs: dict, bfs_trace, pred_tf, device, seed: int) -> dict:
+    """LIVJ/8P on the multi-GPU engine, its D ranks sharing the card (see
+    the module docstring); returns the ``mesh`` line and the relax kernel's
+    launches per variant on this path."""
+    t_phase = time.perf_counter()
+    programs = _main_path_programs(pg, seed)
+    n = pg.graph.n_vertices
+    dense_cfg = EngineConfig(device=str(device), backend="cuda", m_max=MAX_SUPERSTEPS)
+    dense = {}
+    for name, prog, sources in programs:
+        dense[name] = get_engine(pg, program=prog, config=dense_cfg).run(sources)
+        d = dense[name].dist
+        _check(np.allclose(d, runs[name]["dist"], rtol=PAGERANK_RTOL, atol=PAGERANK_ATOL)
+               if name == "pagerank" else np.array_equal(d, runs[name]["dist"]),
+               f"the dense engine's {name} differs from the slice phase's")
+    pg.__dict__.pop("_traversal_engines", None)
+    torch.cuda.empty_cache()
+    pel = partitioned_edge_layout(pg)
+    indeg = np.bincount(pel.remote.dst, minlength=n)
+    hub = int(indeg.argmax())
+    mirror_degree = max(8, MESH_MIRROR_DEGREE >> _cut(int(np.log2(n))))
+    hub_count = int((indeg >= mirror_degree).sum())
+    _check(hub_count >= 1, f"no vertex reaches the mirror threshold {mirror_degree}")
+
+    # the hub's rank at D = 8 holds the largest planes: the kernel is timed
+    # there, at the shapes the engine hands it
+    hub_rank = int(contiguous_device_map(pg.n_parts, MESH_SIZES[0])[pg.part_of_vertex[hub]])
+    ex = _mesh_executor_plan(pg, bfs_trace, pred_tf, device)
+
+    bfs_sources = programs[0][2]
+    jobs = list(programs)
+    # D = 8: the three programs, the mirrored BFS, a swap re-layout and the
+    # executor in one launch; D = 2: the three programs
+    launches_plan = (
+        ("D8", 8, [(None, jobs), (mirror_degree, [("bfs-mirror", BfsProgram(), bfs_sources)])],
+         True, bfs_sources, (hub_rank, seed), ex["args"]),
+        ("D2", 2, [(None, jobs)], False, None, None, None),
+    )
+    launches: dict = {v: 0 for v in VARIANTS}
+    launch_s, results, summary = {}, {}, {}
+    shared = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    with _HostMemory() as host_mem:
+        try:
+            t0 = time.perf_counter()
+            host_mem.mark("before sharing")
+            share_graph(pg, shared / "livj")
+            share_s = time.perf_counter() - t0
+            host_mem.mark("graph shared")
+            for key, d_n, *rank_args in launches_plan:
+                t0 = time.perf_counter()
+                results[key] = run_ranks(_mesh_rank, d_n, device=device.type,
+                                         timeout=MESH_LAUNCH_TIMEOUT_S,
+                                         args=(str(shared / "livj"), *rank_args))
+                launch_s[key] = time.perf_counter() - t0
+                host_mem.mark(f"{key} ranks")
+            ex_results, cut = results["D8"], results["D8"][0]["executor"]
+            ex_info = {"planned_maps": ex["args"]["maps"], "projected_s": cut["projected_s"],
+                       "cut": cut["cut"], "scale": int(np.log2(n))}
+            if cut["cut"]:
+                # the rebuilds were projected past the limit: the run is made
+                # on a graph cut to MESH_EXECUTOR_CUT_SCALE
+                ex_info["reason"] = (
+                    f"{ex['args']['maps']} re-layouts at {cut['build_s']:.1f} s each on the "
+                    f"slowest rank (projected {cut['projected_s']:.0f} s; limit "
+                    f"{MESH_EXECUTOR_MAX_S:.0f} s)")
+                xpg = build_graph(MESH_EXECUTOR_CUT_SCALE, pg.n_parts)[0]
+                _, xtrace = bsp.run_sssp(xpg, 0, max_supersteps=MAX_SUPERSTEPS,
+                                         collect_subgraphs=False,
+                                         config=EngineConfig(device=str(device), backend="cuda"))
+                ex = _mesh_executor_plan(xpg, xtrace, predict_time_function(xpg, 0)[0], device)
+                ex_info["scale"] = MESH_EXECUTOR_CUT_SCALE
+                share_graph(xpg, shared / "cut")
+                t0 = time.perf_counter()
+                ex_results = run_ranks(_mesh_rank, 8, device=device.type,
+                                       timeout=MESH_LAUNCH_TIMEOUT_S,
+                                       args=(str(shared / "cut"), [(None, [])], False, None, None,
+                                             ex["args"]))
+                launch_s["executor"] = time.perf_counter() - t0
+                host_mem.mark("executor ranks")
+            ex_info["dense_wall_s"] = ex["dense_wall_s"]
+        finally:
+            shutil.rmtree(shared, ignore_errors=True)
+
+    for key, d_n, *_ in launches_plan:
+        res = results[key]
+        _check(res.backend in ("gloo", "nccl"), f"unexpected backend {res.backend}")
+        summary[key] = {
+            "ranks": d_n, "backend": res.backend,
+            "transport": res[0]["mesh"]["transport"], "devices": sorted(set(res.devices)),
+            "layout_s": {md: max(r["layouts"][md]["seconds"] for r in res)
+                         for md in res[0]["layouts"]},
+            "layout_host_bytes": {md: max(r["layouts"][md]["host_bytes"] for r in res)
+                                  for md in res[0]["layouts"]},
+            "launch_s": launch_s[key],
+            "rank_load_s": max(r["load_s"] for r in res),
+            "rank_load_rss_bytes": max(r["load_rss_bytes"] for r in res),
+            "programs": _check_mesh_runs(res, dense, d_n),
+        }
+        for r in res:
+            for run in r["runs"].values():
+                for v, c in run["variant_launches"].items():
+                    launches[v] += c
+    probe = results["D8"][0].get("gloo_cuda_probe")
+    planes = results["D8"][hub_rank].get("kernel_planes", [])
+    _check(device.type != "cuda" or len(planes) == 2,
+           "the relax kernel was not held at the hub rank's planes")
+    mir = results["D8"][0]["runs"]["bfs-mirror"]["result"]
+    plain = results["D8"][0]["runs"]["bfs"]["result"]
+    _check(mir["wire_msgs"].sum() <= plain["wire_msgs"].sum(),
+           "mirrored BFS put more on the wire than unmirrored")
+    # -- the swap re-layout: incremental, exact ------------------------------
+    swaps = [r["swap"] for r in results["D8"]]
+    _check(all(sw["done"] for sw in swaps), "the swapped BFS did not converge")
+    _check(np.array_equal(swaps[0]["dist"], dense["bfs"].dist),
+           "the BFS re-laid out between windows differs from the dense engine's")
+    _check(all(sw["build"]["incremental"] for sw in swaps),
+           "a pad-stable swap was not rebuilt from the active layout")
+
+    # -- the executor: relayout=True against the dense executor -------------
+    reports = [r["executor"]["report"] for r in ex_results]
+    rep = reports[0]
+    dense_fields = _report_fields(ex["dense"])
+    for k in dense_fields:
+        if k in PHYSICAL_FIELDS:
+            continue
+        a, b = dense_fields[k], rep[k]
+        same = (a.dtype == b.dtype and np.array_equal(a, b)) if isinstance(a, np.ndarray) else a == b
+        _check(same, f"mesh executor: ExecutionReport.{k} differs from the dense run's")
+    for r, other in enumerate(reports[1:], start=1):
+        _check(all(np.array_equal(other[k], rep[k]) if isinstance(rep[k], np.ndarray)
+                   else other[k] == rep[k] for k in rep), f"mesh executor: rank {r}'s report differs")
+    _check(rep["device_moves"] > 0, "the mesh executor moved no shard between ranks")
+    _check(rep["relayouts"] > 0, "the mesh executor never re-laid the mesh out")
+    _check(rep["replans"] == 0, "the FFD plan re-planned; residency cannot be held to it")
+    plan_rows = ex["args"]["plan"].vm_of
+    for w, row in enumerate(rep["residency"][: plan_rows.shape[0]]):
+        placed = plan_rows[w] >= 0
+        _check(np.array_equal(row[placed], device_of_vm(plan_rows[w][placed], 8)),
+               f"mesh executor: window {w}'s residency is off the plan")
+    for r in ex_results:
+        for v, c in r["executor"]["variant_launches"].items():
+            launches[v] += c
+    line = ex_results[0]["executor"]["line"]
+    builds = [r["executor"]["line"]["relayout_builds"] for r in ex_results]
+    summary["executor"] = {
+        **ex_info, "ranks": 8, "window": 1, "relayout": True,
+        "relayouts": rep["relayouts"], "device_moves": rep["device_moves"],
+        "device_move_bytes": rep["device_move_bytes"], "migrations": rep["n_migrations"],
+        "supersteps": rep["n_supersteps"], "cost_quanta": rep["cost"]["cost_quanta"],
+        "wall_s": line["wall_s"], "host_syncs_executor": line["host_syncs_executor"],
+        "host_syncs_engine": line["host_syncs_engine"],
+        "collective_share": line["collective_s"] / line["wall_s"],
+        "relayout_s": max(sum(b["seconds"] for b in rank) for rank in builds),
+        "relayout_builds_by_rank": builds,
+        "launch_s": launch_s.get("executor"),
+        "host_rss_bytes": max(r["executor"]["host_rss_bytes"] for r in ex_results),
+    }
+    summary.update(
+        hub={"vertex": hub, "remote_in_degree": int(indeg[hub]), "rank_at_d8": hub_rank,
+             "mirror_degree": mirror_degree, "hub_count": hub_count,
+             "wire_msgs_mirrored": int(mir["wire_msgs"].sum()),
+             "wire_msgs_unmirrored": int(plain["wire_msgs"].sum())},
+        swap={"after_supersteps": MESH_SWAP_AFTER, "wall_s": max(sw["wall_s"] for sw in swaps),
+              "builds_by_rank": [sw["build"] for sw in swaps], "map_after": swaps[0]["map_after"]},
+        share_s=share_s, kernel_planes=planes,
+        gloo_cuda_probe=probe, host_memory=host_mem.report(),
+        variant_launches=launches, nvidia_smi=_nvidia_smi(),
+        phase_s=time.perf_counter() - t_phase,
+        note="one card time-sliced between D rank processes; gloo copies the CUDA payloads "
+             "through host memory",
+    )
+    _check(device.type != "cuda" or sum(launches.values()) > 0,
+           "the mesh path launched the relax kernel no time")
+    return summary
+
+
 def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
-                 seg_livj: dict, path_launches: dict) -> dict:
+                 seg_livj: dict, path_launches: dict, mesh_planes: list) -> dict:
     """One entry per kernel the main path launched, with its numbers at the
     main path's own shape: the relax kernel's local closure reduction, the
     segment sum over uniform ids, the flash kernel at the Mixtral 32k
     window (the other cases of each are under ``cases``; the segment sum's
     LIVJ case has its own ``launches`` there).  The relax entries also
-    count their launches on the elastic and serving paths
-    (``launches_by_path``, each read around its own path)."""
+    count their launches on the elastic, serving and mesh paths
+    (``launches_by_path``, each read around its own path; the mesh path's
+    summed over its ranks), and the float32-min entry its times at one
+    mesh rank's planes (``mesh_planes``)."""
     entries = []
     for variant, _, _, prog in MAIN_VARIANTS:
         cases = checks[variant]
@@ -1538,7 +2135,8 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
             "launches": variant_launches[variant],
             "launches_by_path": {"slice": variant_launches[variant],
                                  **{p: v[variant] for p, v in path_launches.items()}},
-            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "max_abs_err": max(c["max_abs_err"] for c in cases + (
+                mesh_planes if variant == PATH_VARIANT else [])),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"],
@@ -1551,6 +2149,10 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
                                                     "plain_ms", "bound_ms", "bound_by",
                                                     "library_ms")},
             "held_against": [c["case"] for c in cases],
+            **({"mesh_planes": [{k: c[k] for k in ("case", "S", "n", "E", "valid_edges", "ms",
+                                                   "ms_back_to_back", "plain_ms", "bound_ms",
+                                                   "bound_by", "library_ms", "max_abs_err")}
+                                for c in mesh_planes]} if variant == PATH_VARIANT else {}),
         })
     for name, source, replaces, phase, launches in (
         ("segment_sum_level_kernel", SEG_SOURCE, SEG_REPLACES, seg, seg["launches"]),
@@ -1592,7 +2194,7 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this smoke runs the port on an "
               "NVIDIA card and reports nothing without one", file=sys.stderr)
         return 2
-    t_start = time.perf_counter()
+    t_start = _last_emit[0] = time.perf_counter()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     report = {}
@@ -1629,13 +2231,17 @@ def main(argv=None) -> int:
     _emit("profile", report["profile"])
     report["relax_entries"] = phase_relax_entries(pg, args.seed, device)
     _emit("relax_entries", report["relax_entries"])
+    report["mesh"] = phase_mesh(pg, runs, bfs_trace, pred_tf, device, args.seed)
+    _emit("mesh", report["mesh"])
     report["kernels"] = kernels_line(
         checks, report["slice"]["variant_launches"], report["segment_sum"],
         report["flash_attention"], report["segment_sum_livj"],
-        {path: report[path]["variant_launches"] for path in ("elastic", "serve")},
+        {path: report[path]["variant_launches"] for path in ("elastic", "serve", "mesh")},
+        report["mesh"]["kernel_planes"],
     )["kernels"]
     report["wall_s"] = time.perf_counter() - t_start
-    _emit("done", {"wall_s": report["wall_s"]})
+    report["phase_seconds"] = dict(PHASE_SECONDS)
+    _emit("done", {"wall_s": report["wall_s"], "phase_seconds_each": dict(PHASE_SECONDS)})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

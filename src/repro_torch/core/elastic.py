@@ -1,6 +1,6 @@
 """Elastic BSP executor: run a subgraph-centric job under a placement
-schedule on the dense engine, with the card's devices standing in for cloud
-VMs (the port of ``repro.core.elastic``, without the mesh engine).
+schedule, with devices -- or the ranks of a partition mesh -- standing in
+for cloud VMs (the port of ``repro.core.elastic``).
 
 The executed job is any ``graph.program.VertexProgram`` (``program=``):
 non-stationary traversals (BFS/SSSP/WCC) whose active partition set sweeps
@@ -13,21 +13,23 @@ The mapping from the paper's cloud model to the port:
 
   VM slot j            -> a torch device of the configured type (every
                           visible ``cuda:i`` for a CUDA config, the CPU for
-                          a CPU one), round-robin (``placement.device_of_vm``)
+                          a CPU one), or on a mesh (``EngineConfig.mesh``)
+                          a mesh rank, round-robin (``placement.device_of_vm``)
   partition placement  -> the partition's VM (and so its device); when the
                           schedule moves it, the transfer
                           (``partition_bytes / move_bandwidth``) is billed
                           into the receiving VM's busy time (pinned
                           strategies therefore never move state and pay no
-                          migration seconds).  The state itself stays in
-                          the dense engine's one plane; copying shards
-                          between devices comes with the mesh engine, the
-                          first reader of such copies
-  superstep compute    -> the dense engine's window on ``config.device``
-                          (mathematically equal to per-VM sequential
-                          execution of its partitions; per-VM time is
-                          accounted from the exact work counters x the
-                          calibrated rate)
+                          migration seconds).  On a mesh the partition's
+                          state rows really travel to the rank its VM maps
+                          onto (``mesh_exchange.place_shard``); on one
+                          plane the dense engine holds every shard and a
+                          move is only counted
+  superstep compute    -> the engine's window on ``config.device`` (or the
+                          mesh's ranks): mathematically equal to per-VM
+                          sequential execution of its partitions; per-VM
+                          time is accounted from the exact work counters x
+                          the calibrated rate
   billing              -> ``core.billing`` on the *actual* executed trace
 
 Windowed execution: ``EngineConfig.window = k`` executes ``k`` supersteps
@@ -44,9 +46,21 @@ Two ledgers are kept apart: ``migration_bytes`` / ``CostReport.
 migration_secs`` bill the plan's simulated cloud moves (every VM change,
 priced at ``move_bandwidth``), the same for any device count;
 ``device_moves`` / ``device_move_bytes`` count the moves whose VMs map onto
-different devices (none with one card).  ``relayouts`` and ``relayouts_skipped`` stay
-in the report and are always 0 here: re-laying the compute out per window
-needs the mesh engine, which is not ported yet.
+different devices or ranks (none with one card and no mesh).
+
+**Dynamic re-layout** (``EngineConfig.relayout=True``, mesh mode): the
+*compute* layout follows the planner too.  At every window boundary the
+spliced placement row is bridged onto ranks (``device_of_vm``) and handed to
+``TraversalEngine.run_window(device_of_part=...)``: the engine swaps to the
+matching ``MeshEdgeLayout`` and moves the carried state between ranks
+exactly, so state and counters stay identical to the static-layout run
+while each partition computes on its planned rank (``residency`` then
+records the engine's active map).  The remap's bytes land in the physical
+ledger, never in ``migration_secs``.  ``relayout="auto"`` commits a swap
+only when the moved partitions' remaining planned-active supersteps
+(byte-weighted) cover ``AUTO_RELAYOUT_MIN_STEPS`` times the bytes moved;
+vetoed swaps are counted in ``relayouts_skipped``.  Every rank runs the
+same executor calls (the plan and the counters are the same on all ranks).
 
 ``replan=True`` re-plans online when the actually-active partition set
 diverges from the plan at a window boundary (``core.replan``); ``sketch``
@@ -72,8 +86,9 @@ from repro_torch.core.replan import OnlineReplanner, ReplanConfig
 from repro_torch.core.timing import DEFAULT_ALPHA, DEFAULT_BETA, TimeFunction
 from repro_torch.graph import deltas as graph_deltas
 from repro_torch.graph.config import EngineConfig, versioned_report
+from repro_torch.graph.mesh_exchange import place_shard
 from repro_torch.graph.program import SsspProgram, VertexProgram
-from repro_torch.graph.structs import PartitionedGraph
+from repro_torch.graph.structs import BoundedCache, PartitionedGraph
 from repro_torch.graph.traversal import get_engine
 
 
@@ -93,8 +108,9 @@ class ExecutionReport:
     device_move_bytes: int = 0  # bytes physically transferred between devices
     residency: np.ndarray | None = None  # [n_windows, P] device per partition
     # (-1 = not yet placed), recorded at each window boundary
-    relayouts: int = 0  # windows whose compute layout was swapped (mesh only)
-    relayouts_skipped: int = 0  # swaps vetoed by the "auto" policy (mesh only)
+    relayouts: int = 0  # windows whose compute layout was actually swapped
+    relayouts_skipped: int = 0  # proposed swaps vetoed by the "auto" policy
+    # (projected move bytes exceeded the estimated remaining locality gain)
     mutations_applied: int = 0  # delta buffers merged at window boundaries
     repartition_moves: int = 0  # vertices migrated by the bounded LPA pass
 
@@ -143,8 +159,18 @@ class ElasticBSPExecutor:
         self.beta = beta
         self.tau_scale = tau_scale
         self.billing = billing or BillingModel()
+        self.mesh = self.config.mesh
         self._adopt(pg)
-        self.devices = _vm_devices(self.engine.device)
+        self.devices = (
+            list(range(self.mesh.world_size))
+            if self.engine.device_of_part is not None
+            else _vm_devices(self.engine.device)
+        )
+
+    #: ``relayout="auto"`` break-even horizon: a proposed swap is committed
+    #: only if the moved partitions' remaining planned-active supersteps
+    #: (byte-weighted) cover at least this many windows' worth of the move
+    AUTO_RELAYOUT_MIN_STEPS = 4
 
     def _adopt(self, pg: PartitionedGraph) -> None:
         """Take ``pg`` as the executed graph: its engine and the shard sizes
@@ -154,6 +180,24 @@ class ElasticBSPExecutor:
         itemsize = np.dtype(self.program.dtype).itemsize
         nv, _ = pg.partition_sizes
         self.partition_bytes = (itemsize * nv).astype(np.int64)
+        self._part_rows_cache = BoundedCache(8)
+
+    def _part_rows(self) -> list:
+        """Per partition, ``(owner rank, its local state rows on the
+        owner)`` under the engine's active mesh layout (cached per map)."""
+        dop = self.engine.device_of_part
+
+        def build():
+            n_pad = self.engine._mesh_prog.layout.n_pad
+            pos = np.asarray(self.engine.state_index_of_vertex)
+            out = []
+            for i in range(self.pg.n_parts):
+                owner = int(dop[i])
+                rows = pos[np.flatnonzero(self.pg.part_of_vertex == i)] - owner * n_pad
+                out.append((owner, torch.as_tensor(rows, device=self.engine.device)))
+            return out
+
+        return self._part_rows_cache.get_or_build(dop.tobytes(), build)
 
     def _apply_mutation(self, buf, state, repartition, replanner):
         """Window-boundary delta merge: swap graph + engine, carry state.
@@ -173,10 +217,23 @@ class ElasticBSPExecutor:
                 "mid-run mutations are monotone-programs-only "
                 f"(got stationary {self.program.key})"
             )
-        new_pg, rep = graph_deltas.merge_buffer(self.pg, buf, repartition)
-        self._adopt(new_pg)  # dense state is in global vertex order: no carry
+        old_prog = self.engine._mesh_prog
+        old_layout = None if old_prog is None else old_prog.layout
+        new_pg, rep = graph_deltas.merge_buffer(
+            self.pg, buf, repartition, old_layout=old_layout,
+            mirror_degree=self.config.mirror_degree, mesh=self.mesh,
+        )
+        self._adopt(new_pg)
+        new_prog = self.engine._mesh_prog
+        new_layout = None if new_prog is None else new_prog.layout
+        identity = self.program.identity
+        # dense state is in global vertex order: the carry is the identity
+        state = graph_deltas.carry_state(
+            old_layout, new_layout, state, identity=identity, mesh=self.mesh
+        )
         state = graph_deltas.reactivate_sources(
-            state, None, buf.inserts()[0], identity=self.program.identity
+            state, new_layout, buf.inserts()[0], identity=identity,
+            rank=None if new_prog is None else new_prog.rank,
         )
         if rep is not None:
             replanner.reprime(rep.part_activity)
@@ -196,10 +253,15 @@ class ElasticBSPExecutor:
         repartition: RepartitionConfig | bool | None = None,
     ) -> ExecutionReport:
         """Execute the program under ``plan`` (see the module docstring);
-        ``EngineConfig.window`` supersteps per engine window."""
+        ``EngineConfig.window`` supersteps per engine window,
+        ``EngineConfig.relayout`` (mesh mode) to make the compute layout
+        follow the plan."""
         pg = self.pg
         t0 = time.perf_counter()
         window = max(1, int(self.config.window))
+        relayout = self.config.relayout
+        auto_relayout = isinstance(relayout, str) and relayout == "auto"
+        relayout = (auto_relayout or bool(relayout)) and self.engine.device_of_part is not None
         muts = sorted(mutations or (), key=lambda tb: int(tb[0]))
         mut_idx = 0
         mutations_applied = 0
@@ -223,6 +285,8 @@ class ElasticBSPExecutor:
         device_move_bytes = 0
         mig_events: list[tuple[int, int, float]] = []  # (superstep, vm, secs)
         replans = 0
+        relayouts = 0
+        relayouts_skipped = 0
         host_syncs = 0
         taus: list[np.ndarray] = []
         vm_rows: list[np.ndarray] = []
@@ -268,8 +332,37 @@ class ElasticBSPExecutor:
             k = max(1, min(window, horizon - s, max_supersteps - s))
             rows = vm_of[s : s + k]
 
+            # -- dynamic re-layout: compute follows the plan -----------------
+            # the window's boundary row decides where placed partitions
+            # compute; unplaced ones keep their current rank.  The remap is
+            # real traffic between ranks -> the physical ledger; the billed
+            # cloud migration (migration_secs) stays plan-derived below.
+            target_map = None
+            if relayout:
+                cur = self.engine.device_of_part
+                target_map = cur.copy()
+                placed = rows[0] >= 0
+                target_map[placed] = device_of_vm(rows[0][placed], n_dev)
+                if np.array_equal(target_map, cur):
+                    target_map = None
+                else:
+                    moved = np.flatnonzero(target_map != cur)
+                    move_bytes = int(self.partition_bytes[moved].sum())
+                    if auto_relayout:
+                        # payback test: bytes moved now must be covered by
+                        # the moved partitions' remaining planned activity
+                        future_steps = (vm_of[s:, moved] >= 0).sum(axis=0)
+                        gain = int((self.partition_bytes[moved] * future_steps).sum())
+                        if move_bytes * self.AUTO_RELAYOUT_MIN_STEPS > gain:
+                            target_map = None
+                            relayouts_skipped += 1
+                    if target_map is not None:
+                        relayouts += 1
+                        device_moves += int(moved.size)
+                        device_move_bytes += move_bytes
+
             # -- one engine window, one bulk counter pull --------------------
-            wres = self.engine.run_window(state, k)
+            wres = self.engine.run_window(state, k, device_of_part=target_map)
             host_syncs += 1
             state = wres.state
             steps = int(wres.n_supersteps[0]) - s
@@ -279,6 +372,10 @@ class ElasticBSPExecutor:
             # convergence never migrates, so counted moves == billed moves.
             # The VM move is the *billed* (simulated cloud) migration; a
             # move whose VMs map onto different devices is tallied apart.
+            # On a mesh the partition's rows really travel from the rank
+            # computing them to the rank of its VM (nothing keeps the copy:
+            # the engine stays the compute source of truth).
+            part_rows = self._part_rows() if self.engine.device_of_part is not None else None
             for t in range(steps):
                 row = rows[t]
                 for i in np.flatnonzero(row >= 0):
@@ -286,7 +383,18 @@ class ElasticBSPExecutor:
                     if prev_vm[i] == j:
                         continue
                     dev = device_of_vm(j, n_dev)
-                    if 0 <= prev_dev[i] != dev:  # the shard crossed devices
+                    prev = int(prev_dev[i]) if prev_dev[i] >= 0 else None
+                    if part_rows is not None:
+                        owner, local_rows = part_rows[i]
+                        shard = state.dist[0].index_select(
+                            0, local_rows if self.mesh.rank == owner else local_rows[:0]
+                        )
+                        _, crossed = place_shard(
+                            self.mesh, shard, local_rows.numel(), owner, dev, prev
+                        )
+                    else:
+                        crossed = prev is not None and prev != dev
+                    if crossed:
                         device_moves += 1
                         device_move_bytes += int(self.partition_bytes[i])
                     if prev_vm[i] >= 0:
@@ -314,9 +422,13 @@ class ElasticBSPExecutor:
             s += steps
             active_next = wres.part_active_next[0]
             done = bool(wres.done[0])
-            residency.append(prev_dev.copy())
+            # residency: planned devices (static layout) or the engine's
+            # actual compute map (dynamic re-layout)
+            residency.append(
+                self.engine.device_of_part.astype(np.int64) if relayout else prev_dev.copy()
+            )
 
-        # the final bulk pull
+        # the final bulk pull (on a mesh, every rank's block gathered)
         dist = self.engine.gather_global(state.dist)[0]
         host_syncs += 1
 
@@ -354,6 +466,8 @@ class ElasticBSPExecutor:
                 if residency
                 else np.zeros((0, pg.n_parts), dtype=np.int64)
             ),
+            relayouts=relayouts,
+            relayouts_skipped=relayouts_skipped,
             mutations_applied=mutations_applied,
             repartition_moves=repartition_moves,
         )

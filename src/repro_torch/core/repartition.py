@@ -46,7 +46,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.timing import DEFAULT_ALPHA, DEFAULT_BETA
-from repro_torch.graph.structs import Graph, PartitionedGraph
+from repro_torch.graph.structs import Graph, PartitionedGraph, sorted_distinct
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,7 +96,7 @@ def partition_penalty(
     ch = cross & hub
     n_wire = int(np.count_nonzero(cross & ~hub))
     pair_key = src_p[ch].astype(np.int64) * g.n_vertices + g.dst[ch]
-    return float(n_wire + np.unique(pair_key).size)
+    return float(n_wire + sorted_distinct(pair_key).size)
 
 
 def incremental_repartition(

@@ -1,0 +1,194 @@
+"""The graph partition axis as a mesh of processes (``repro.dist.sharding``'s
+``partition_mesh`` and ``parts`` specs, ported to ``torch.distributed``).
+
+A ``PartitionMesh`` is one rank's view of the mesh the traversal engine
+shards its device-major vertex layout over: the world size, this rank, the
+process group, the ``torch.device`` this rank computes on, and the backend's
+name.  Where the JAX package writes ``P(None, "parts")`` for the carried
+state, a rank here simply holds its own ``[S, n_pad]`` block.
+
+The mesh also owns the collectives the engine runs, so every one of them is
+counted and timed in one place (``CollectiveStats``):
+
+  * ``all_reduce`` (``MAX`` for the closure and boundary syncs, ``SUM`` for
+    the counter epilogue), ``all_to_all`` (the static wire and mirror
+    planes), ``all_to_all_v`` (uneven splits: state relayout and shard
+    moves) and ``all_gather`` (state back to global vertex order).
+  * **Transport.**  Every backend takes the tensors where they lie
+    (``"direct"``): NCCL between cards, gloo on the CPU, and gloo with
+    CUDA tensors -- the case of several ranks on one card, where NCCL
+    refuses to run -- which copies them through host memory itself.
+
+``partition_mesh(1)`` outside a launched rank is a legal one-rank mesh; the
+engine takes its dense path for it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    """Counts, bytes and host-clock seconds of one rank's collectives.
+
+    ``calls`` and ``bytes`` are keyed by operation (``"all_reduce"``,
+    ``"all_to_all"``, ``"all_to_all_v"``, ``"all_gather"``); ``seconds``
+    spans each call until the backend returns.
+    """
+
+    calls: dict = dataclasses.field(default_factory=dict)
+    bytes: dict = dataclasses.field(default_factory=dict)
+    seconds: float = 0.0
+
+    def add(self, op: str, nbytes: int, secs: float) -> None:
+        self.calls[op] = self.calls.get(op, 0) + 1
+        self.bytes[op] = self.bytes.get(op, 0) + int(nbytes)
+        self.seconds += secs
+
+    def snapshot(self) -> dict:
+        return {"calls": dict(self.calls), "bytes": dict(self.bytes), "seconds": self.seconds}
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """The tensor handed to the backend: bool payloads travel as uint8."""
+    t = t.contiguous()
+    return t.view(torch.uint8) if t.dtype == torch.bool else t
+
+
+def _unwire(t: torch.Tensor, dtype) -> torch.Tensor:
+    return t.view(torch.bool) if dtype == torch.bool else t
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PartitionMesh:
+    """One rank's view of the partition mesh (see the module docstring)."""
+
+    world_size: int
+    rank: int
+    device: torch.device
+    backend: str | None  # "nccl" | "gloo" | None (a one-rank mesh)
+    group: Any = None  # the process group (None on a one-rank mesh)
+    stats: CollectiveStats = dataclasses.field(default_factory=CollectiveStats)
+
+    #: how payloads reach the backend (see the module docstring)
+    transport = "direct"
+
+    @property
+    def key(self) -> tuple:
+        """Hashable identity for engine caches."""
+        return (int(self.world_size), int(self.rank), str(self.backend), str(self.device))
+
+    def describe(self) -> dict:
+        return {
+            "world_size": self.world_size, "rank": self.rank,
+            "device": str(self.device), "backend": self.backend,
+            "transport": self.transport,
+        }
+
+    # -- collectives ---------------------------------------------------------
+
+    def all_reduce(self, t: torch.Tensor, op: str = "max") -> torch.Tensor:
+        """``MAX`` or ``SUM`` over the ranks; returns a new tensor."""
+        red = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}[op]
+        t0 = time.perf_counter()
+        h = _wire(t).clone()  # the reduction is in place; the input stays
+        dist.all_reduce(h, op=red, group=self.group)
+        self.stats.add("all_reduce", h.numel() * h.element_size(), time.perf_counter() - t0)
+        return _unwire(h, t.dtype)
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """``[D, ...]`` -> ``[D, ...]``: block ``j`` goes to rank ``j``, and
+        block ``j`` of the result came from rank ``j``."""
+        if t.shape[0] != self.world_size:
+            raise ValueError(f"all_to_all wants [{self.world_size}, ...], got {tuple(t.shape)}")
+        t0 = time.perf_counter()
+        h = _wire(t)
+        out = torch.empty_like(h)
+        dist.all_to_all_single(out, h, group=self.group)
+        self.stats.add("all_to_all", h.numel() * h.element_size(), time.perf_counter() - t0)
+        return _unwire(out, t.dtype)
+
+    def all_to_all_v(
+        self, t: torch.Tensor, send_counts: list[int], recv_counts: list[int]
+    ) -> torch.Tensor:
+        """Uneven all-to-all along dim 0: ``send_counts[j]`` leading rows of
+        ``t`` (in rank order) go to rank ``j``; ``recv_counts[j]`` rows come
+        back from rank ``j``."""
+        t0 = time.perf_counter()
+        h = _wire(t)
+        out = h.new_empty((int(sum(recv_counts)), *h.shape[1:]))
+        dist.all_to_all_single(
+            out, h, [int(c) for c in recv_counts], [int(c) for c in send_counts],
+            group=self.group,
+        )
+        self.stats.add("all_to_all_v", h.numel() * h.element_size(), time.perf_counter() - t0)
+        return _unwire(out, t.dtype)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``[...]`` on every rank -> ``[D, ...]`` (rank order)."""
+        t0 = time.perf_counter()
+        h = _wire(t)
+        out = h.new_empty((self.world_size, *h.shape))
+        dist.all_gather(list(out.unbind(0)), h, group=self.group)
+        self.stats.add("all_gather", h.numel() * h.element_size(), time.perf_counter() - t0)
+        return _unwire(out, t.dtype)
+
+    def gather_host(self, a: np.ndarray) -> np.ndarray:
+        """A small host array of the same shape and dtype on every rank ->
+        ``[D, ...]`` on the host (``all_gather`` on this rank's device)."""
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return self.all_gather(t).cpu().numpy()
+
+
+#: the device each launched rank computes on (set by ``dist.launch``)
+_RANK_DEVICE: torch.device | None = None
+
+
+def partition_mesh(n_devices: int | None = None, *, device=None) -> PartitionMesh:
+    """This rank's ``PartitionMesh`` over the ``parts`` axis.
+
+    Inside a rank started by ``dist.launch.run_ranks`` (or any initialized
+    default process group) the mesh spans every rank of the default group;
+    ``n_devices``, when given, must equal the world size.  Outside one, only
+    a one-rank mesh exists (``n_devices`` of None or 1).  The rank computes
+    on ``device``; by default on the card ``run_ranks`` gave it, else on the
+    current CUDA device -- the port runs on the card unless asked for the
+    CPU, and without CUDA only ``device="cpu"`` is legal.
+    """
+    if dist.is_available() and dist.is_initialized():
+        world = dist.get_world_size()
+        if n_devices is not None and int(n_devices) != world:
+            raise ValueError(
+                f"asked for a {n_devices}-rank mesh inside a {world}-rank process group"
+            )
+        dev = torch.device(device) if device is not None else _RANK_DEVICE
+        if dev is None:
+            dev = torch.device("cuda", torch.cuda.current_device()) if (
+                torch.cuda.is_available()
+            ) else torch.device("cuda")
+        _check_device(dev)
+        return PartitionMesh(
+            world, dist.get_rank(), dev, dist.get_backend(), group=dist.group.WORLD
+        )
+    if n_devices not in (None, 1):
+        raise ValueError(
+            f"a {n_devices}-rank mesh needs one process per rank: start them with "
+            "repro_torch.dist.run_ranks (no process group is initialized here)"
+        )
+    dev = torch.device(device if device is not None else "cuda")
+    _check_device(dev)
+    return PartitionMesh(1, 0, dev, None)
+
+
+def _check_device(dev: torch.device) -> None:
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "a CUDA mesh was requested but CUDA is not available; pass device='cpu'"
+        )

@@ -1,16 +1,23 @@
 """Graph substrate of the port (see ``repro_torch`` and ``repro.graph``).
 
   structs     -- PartitionedGraph, WCC subgraph labeling, the dst-sorted
-                 CsrEdgeLayout and its block map / CSR row offsets
+                 CsrEdgeLayout and its block map / CSR row offsets, the
+                 MeshEdgeLayout and one rank's block of it (MeshRankLayout)
   generators  -- synthetic graphs matched to the paper's dataset families
-  partition   -- hash + BFS-grow partitioners and the local/remote layout
-  config      -- ``EngineConfig`` (device, backend, depth, window)
+  partition   -- hash + BFS-grow partitioners, the local/remote layout and
+                 the mesh layout (incremental rebuild, hub mirrors), whole
+                 or one rank's block
+  config      -- ``EngineConfig`` (device, backend, mesh, mirrors, depth,
+                 window, relayout)
   program     -- the VertexProgram algebra as torch ops
-  traversal   -- the dense device-resident BSP engine and the
-                 one-superstep oracle ``make_superstep_fn``
+  traversal   -- the device-resident BSP engine (dense, or on a mesh) and
+                 the one-superstep oracle ``make_superstep_fn``
+  mesh_exchange -- the engine's mesh window: one process per rank, the
+                 superstep exchange as real collectives
   bsp         -- host drivers building BSP work traces
   deltas      -- streaming edge mutations: bounded ``EdgeDeltaBuffer``
-                 merged into a new graph at window boundaries (dense half)
+                 merged into a new graph at window boundaries, the mesh
+                 layout merged incrementally
   session     -- ``open_session(pg, config)``: the unified facade over
                  engines, windowed traversal, delta merges and the executor
 

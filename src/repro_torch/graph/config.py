@@ -1,11 +1,11 @@
 """One frozen configuration surface for the port's engine-shaped constructors.
 
 ``EngineConfig`` carries every knob from ``bsp.run_program`` down to the
-dense ``TraversalEngine``.  It mirrors ``repro.graph.config.EngineConfig``
-minus the knobs whose subsystems are not ported yet (mesh, hub mirroring,
-the mesh relayout, the TPU block sizes) and plus ``device``: entry points run
-on the card unless the caller asks for the CPU.  There are no legacy kwarg
-shims -- callers pass ``config=``.
+``TraversalEngine``.  It mirrors ``repro.graph.config.EngineConfig`` minus
+the TPU block sizes and plus ``device``: entry points run on the card unless
+the caller asks for the CPU.  ``mesh`` is a ``dist.PartitionMesh`` (one
+process per mesh rank, see ``repro_torch.dist``) or None for the dense
+engine.  There are no legacy kwarg shims -- callers pass ``config=``.
 
 ``REPORT_SCHEMA_VERSION`` + ``versioned_report`` define the shared
 ``asdict()`` surface of ``TraversalResult``, ``ExecutionReport`` and
@@ -17,6 +17,7 @@ returns, so consumers key on names and never on positional order.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -34,12 +35,21 @@ class EngineConfig:
     ``"cuda"`` (the hand-written Hopper kernel) or ``"torch"`` (the plain
     version); ``None`` picks the device's default -- ``"cuda"`` on a card,
     ``"torch"`` on the CPU.
+
+    ``mesh`` (a ``dist.PartitionMesh``) shards the partition axis over the
+    mesh's ranks; the engine then runs on ``mesh.device``, whose type must
+    match ``device``.  ``mirror_degree`` is the mesh layout's hub
+    threshold; ``relayout`` (``True``, ``False`` or ``"auto"``) makes the
+    elastic executor's compute layout follow its plan.
     """
 
     device: str = "cuda"
     backend: str | None = None
+    mesh: Any = None
+    mirror_degree: int | None = None
     m_max: int = 512
     window: int = 8  # supersteps per launched window (elastic / serving)
+    relayout: bool | str = False  # elastic executor: follow the plan with ranks
     collect_subgraphs: bool = False
 
     def replace(self, **kw) -> "EngineConfig":

@@ -1,5 +1,5 @@
 """Streaming edge mutations over the static CSR: bounded delta buffers
-merged only at window boundaries (the dense half of ``repro.graph.deltas``).
+merged only at window boundaries (the port of ``repro.graph.deltas``).
 
 The static layout (``partitioned_edge_layout``) buys its fixed shapes and
 sorted-segment fast paths by freezing the edge list at build time;
@@ -19,18 +19,23 @@ both honest:
     ``merge_buffer`` adds the optional repartition pass; the session, the
     executor and the service all merge through it.
 
+**Mesh layouts** (``merged_mesh_layout``): a merge under a mesh engine
+rebuilds each rank's ``MeshRankLayout`` (or a whole ``MeshEdgeLayout``)
+incrementally -- only the planes of devices whose edge content changed
+(``delta_changed_devices``) and of the devices that send into them --
+byte-identical to a build from scratch, and primes it into the new graph's
+caches so the next engine adopts it.
+
 **State carry** (``carry_state``): the dense engine keeps state in global
 vertex order, which edge mutations do not disturb, so the carry is the
-identity.  For *monotone* programs, continuing relaxation on the merged
-graph from carried state reaches the same fixpoint as a fresh run IF every
-source of an inserted edge with non-identity state re-enters the frontier
-(``reactivate_sources``).  Deletes cannot be un-relaxed, so callers refuse
-to carry state across a buffer with deletes and restart the query instead.
-
-Not ported yet (they need the mesh layout, which comes with the multi-GPU
-engine): ``delta_changed_devices`` and ``merged_mesh_layout``, the
-incremental per-device rebuild, and the mesh branch of ``carry_state``
-(``relayout_state``).
+identity; a mesh engine's padded layout can change shape across a merge,
+so its state moves through ``mesh_exchange.relayout_state``, a permutation
+through global vertex order.  For *monotone* programs, continuing
+relaxation on the merged graph from carried state reaches the same fixpoint
+as a fresh run IF every source of an inserted edge with non-identity state
+re-enters the frontier (``reactivate_sources``).  Deletes cannot be
+un-relaxed, so callers refuse to carry state across a buffer with deletes
+and restart the query instead.
 """
 
 from __future__ import annotations
@@ -41,7 +46,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.repartition import RepartitionConfig, incremental_repartition
-from repro_torch.graph.structs import Graph, PartitionedGraph
+from repro_torch.graph.partition import (
+    _mesh_part_slices,
+    _mirror_hub_plan,
+    mesh_edge_layout,
+    mesh_rank_layout,
+    partitioned_edge_layout,
+)
+from repro_torch.graph.structs import Graph, MeshEdgeLayout, MeshRankLayout, PartitionedGraph
 
 DEFAULT_BUFFER_CAPACITY = 4096
 
@@ -197,35 +209,142 @@ def apply_delta_buffer(
     return new_pg
 
 
-def merge_buffer(pg: PartitionedGraph, buf: EdgeDeltaBuffer, repartition=None):
+def merge_buffer(
+    pg: PartitionedGraph,
+    buf: EdgeDeltaBuffer,
+    repartition=None,
+    *,
+    old_layout: MeshEdgeLayout | MeshRankLayout | None = None,
+    mirror_degree: int | None = None,
+    mesh=None,
+):
     """The window-boundary merge the session, the executor and the service
     share: ``apply_delta_buffer``, then one bounded repartition pass when
     ``repartition`` is set (a ``RepartitionConfig``, or ``True`` for the
-    default one).  Returns ``(new_pg, RepartitionResult or None)``; a state
-    carried across it goes through ``reactivate_sources`` with the buffer's
-    insert sources.
+    default one, which prices ``mirror_degree``'s hubs).  With a mesh engine's
+    ``old_layout`` and no vertex moved, the merged mesh layout is primed into
+    the new graph's caches (``merged_mesh_layout``; a rank's layout merges
+    through ``mesh``, a collective).  Returns ``(new_pg,
+    RepartitionResult or None)``; a state carried across it goes through
+    ``carry_state`` and ``reactivate_sources`` with the buffer's insert
+    sources.
     """
     new_pg = apply_delta_buffer(pg, buf)
-    if not repartition:
-        return new_pg, None
-    rcfg = repartition if isinstance(repartition, RepartitionConfig) else RepartitionConfig()
-    rep = incremental_repartition(new_pg, config=rcfg)
-    return rep.pg, rep
+    rep = None
+    if repartition:
+        rcfg = (
+            repartition
+            if isinstance(repartition, RepartitionConfig)
+            else RepartitionConfig(mirror_degree=mirror_degree)
+        )
+        rep = incremental_repartition(new_pg, config=rcfg)
+        new_pg = rep.pg
+    if old_layout is not None and new_pg is not pg and (rep is None or rep.moves == 0):
+        merged_mesh_layout(pg, new_pg, old_layout, mesh=mesh)
+    return new_pg, rep
 
 
-def carry_state(old_layout, new_layout, state):
+def delta_changed_devices(
+    old_pg: PartitionedGraph,
+    new_pg: PartitionedGraph,
+    layout: MeshEdgeLayout | MeshRankLayout,
+) -> np.ndarray:
+    """[D] bool: devices whose per-device layout inputs differ between the
+    two graphs under ``layout``'s placement.
+
+    A device's edge blocks are a deterministic function of its partitions'
+    dst-sorted index slices and the edge content (src/dst/weight/hub flag)
+    at those rows -- the global dst-sorted indices are baked into
+    ``l_eid``/``r_eid``, so both the *indices* and the *content* must match
+    for a carried block to be byte-identical.  Any partition failing either
+    comparison flags its device; ``_build_mesh_layout``'s reach propagation
+    then adds senders into flagged devices exactly as it does for map moves.
+    """
+    p = old_pg.n_parts
+    osl = _mesh_part_slices(old_pg)
+    nsl = _mesh_part_slices(new_pg)
+    ol = partitioned_edge_layout(old_pg)
+    nl = partitioned_edge_layout(new_pg)
+    ohub, _ = _mirror_hub_plan(old_pg, layout.mirror_degree)
+    nhub, _ = _mirror_hub_plan(new_pg, layout.mirror_degree)
+    changed_part = np.zeros(p, dtype=bool)
+    for q in range(p):
+        a, b = osl.lsel[q], nsl.lsel[q]
+        if not (
+            np.array_equal(a, b)
+            and np.array_equal(ol.local.src[a], nl.local.src[b])
+            and np.array_equal(ol.local.dst[a], nl.local.dst[b])
+            and np.array_equal(ol.local.weights[a], nl.local.weights[b])
+        ):
+            changed_part[q] = True
+            continue
+        a, b = osl.rsel[q], nsl.rsel[q]
+        if not (
+            np.array_equal(a, b)
+            and np.array_equal(ol.remote.src[a], nl.remote.src[b])
+            and np.array_equal(ol.remote.dst[a], nl.remote.dst[b])
+            and np.array_equal(ol.remote.weights[a], nl.remote.weights[b])
+            and np.array_equal(ohub[a], nhub[b])
+        ):
+            changed_part[q] = True
+    dev = np.zeros(layout.n_devices, dtype=bool)
+    dev[layout.device_of_part[changed_part]] = True
+    return dev
+
+
+def merged_mesh_layout(
+    old_pg: PartitionedGraph,
+    new_pg: PartitionedGraph,
+    old_layout: MeshEdgeLayout | MeshRankLayout,
+    *,
+    mesh=None,
+) -> MeshEdgeLayout | MeshRankLayout:
+    """Incrementally merge a delta into the mesh layout.
+
+    Builds ``new_pg``'s layout under ``old_layout``'s placement/mirror knobs,
+    reusing every device block whose inputs ``delta_changed_devices`` proves
+    unchanged.  Byte-identical to a from-scratch build of the mutated graph;
+    the chosen path is recorded in ``__dict__['_build_info']``.  The result
+    lands in ``new_pg``'s layout caches under the canonical generation-aware
+    key, so an engine constructed on ``new_pg`` afterwards adopts the merged
+    layout instead of rebuilding.  A rank's ``MeshRankLayout`` merges into
+    the rank's new block (``mesh_rank_layout``, through ``mesh`` when given:
+    every rank merges at once).
+    """
+    if new_pg is old_pg:
+        return old_layout
+    mask = delta_changed_devices(old_pg, new_pg, old_layout)
+    if isinstance(old_layout, MeshRankLayout):
+        return mesh_rank_layout(
+            new_pg, old_layout.device_of_part, old_layout.n_devices, old_layout.rank,
+            base=old_layout, mirror_degree=old_layout.mirror_degree,
+            changed_devices=mask, mesh=mesh,
+        )
+    return mesh_edge_layout(
+        new_pg,
+        old_layout.device_of_part,
+        old_layout.n_devices,
+        base=old_layout,
+        mirror_degree=old_layout.mirror_degree,
+        changed_devices=mask,
+    )
+
+
+def carry_state(old_layout, new_layout, state, *, identity=None, mesh=None):
     """Carry in-flight window state across a merge, exactly.
 
     Dense engines (either layout ``None``) keep state in global vertex
     order, which edge mutations do not disturb: the carry is the identity.
-    A mesh layout on both sides needs the multi-GPU engine's state relayout,
-    which is not ported yet, and raises.
+    Mesh engines route through ``mesh_exchange.relayout_state`` (``mesh``
+    given: this rank's block moves between ranks): a pure permutation
+    through global vertex order, bit-exact per vertex even when an edge-pad
+    change forced new shard shapes.
     """
     if old_layout is None or new_layout is None:
         return state
-    raise NotImplementedError(
-        "carrying state between mesh layouts comes with the multi-GPU engine"
-    )
+    from repro_torch.graph.mesh_exchange import relayout_state
+
+    return relayout_state(old_layout, new_layout, state, identity=identity, mesh=mesh)
 
 
 def _reactivate_rows(
@@ -246,21 +365,29 @@ def _reactivate_rows(
     return frontier.index_copy(-1, idx, hot)
 
 
-def reactivate_sources(state, layout, sources: np.ndarray, *, identity):
+def reactivate_sources(state, layout, sources: np.ndarray, *, identity, rank=None):
     """Return ``state`` with inserted-edge sources re-activated.
 
     ``sources`` are global vertex ids (the distinct ``src`` endpoints of a
-    buffer's inserts); ``layout`` is ``None`` on the dense engine, whose
-    state is already in global order.  The update runs as torch ops on the
-    state's device; the returned state holds a new frontier tensor.
+    buffer's inserts).  ``layout`` is ``None`` on the dense engine, whose
+    state is already in global order; on a mesh it maps the sources to
+    padded device-major rows -- of the full-width state, or, with ``rank``,
+    of that rank's ``[S, n_pad]`` block (each rank re-activates the sources
+    it owns).  The update runs as torch ops on the state's device; the
+    returned state holds a new frontier tensor.
     """
     sources = np.unique(np.asarray(sources, dtype=np.int64))
     if sources.size == 0:
         return state
-    if layout is not None:
-        raise NotImplementedError(
-            "reactivating sources in a mesh layout comes with the multi-GPU engine"
-        )
-    idx = torch.as_tensor(sources, device=state.dist.device)
+    if layout is None:
+        idx = sources
+    else:
+        idx = np.asarray(layout.pos_of_vertex)[sources]
+        if rank is not None:
+            lo = int(rank) * layout.n_pad
+            idx = idx[(idx >= lo) & (idx < lo + layout.n_pad)] - lo
+            if idx.size == 0:
+                return state
+    idx = torch.as_tensor(idx, device=state.dist.device)
     frontier = _reactivate_rows(state.dist, state.frontier, idx, identity.item())
     return state._replace(frontier=frontier)

@@ -96,8 +96,8 @@ class VertexProgram:
 
     def collective_signature(self, *, mirrored: bool = False) -> dict:
         """Declared collective footprint of ONE superstep of the mesh window
-        program (the JAX package's contract, kept so the multi-GPU slice is
-        checked against the same declaration).
+        program (the JAX package's contract; ``graph.mesh_exchange`` records
+        every window's collectives and holds them against it).
 
         ``all_to_all`` value exchange rounds at the superstep boundary (two
         under hub mirroring), ``psum`` value psums inside the superstep body,
@@ -152,8 +152,7 @@ class VertexProgram:
         """[P] bool: partitions active at superstep 0."""
         _, frontier = self.init(pg, np.atleast_1d(np.asarray(sources)))
         active = np.zeros(pg.n_parts, dtype=bool)
-        parts = pg.part_of_vertex[np.flatnonzero(frontier.any(axis=0))]
-        active[np.unique(parts)] = True
+        active[pg.part_of_vertex[np.flatnonzero(frontier.any(axis=0))]] = True
         return active
 
     def edge_plane(self, pg: PartitionedGraph) -> np.ndarray | None:
@@ -197,6 +196,38 @@ def validate_program(program: VertexProgram) -> VertexProgram:
             )
     torch_dtype(program.dtype)  # raises on a state type the port lacks
     return program
+
+
+#: keys every ``collective_signature()`` must declare
+SIGNATURE_KEYS = ("all_to_all", "psum", "pmax_boundary", "pmax_closure")
+
+
+def validate_collective_signature(
+    program: VertexProgram, *, mirrored: bool = False
+) -> dict:
+    """Validate and return the program's declared collective signature.
+
+    Called by the mesh engine at construction, which then holds every
+    window's recorded collectives against it, so a malformed declaration
+    fails loudly rather than silently passing an empty expectation.
+    ``mirrored`` selects the hub-mirroring variant of the declaration (one
+    extra ``all_to_all`` for the mirror->owner sync).
+    """
+    sig = dict(program.collective_signature(mirrored=mirrored))
+    missing = [k for k in SIGNATURE_KEYS if k not in sig]
+    extra = [k for k in sig if k not in SIGNATURE_KEYS]
+    if missing or extra:
+        raise ValueError(
+            f"{program.name}: collective_signature() must declare exactly "
+            f"{SIGNATURE_KEYS}; missing {missing}, unexpected {extra}"
+        )
+    for k, v in sig.items():
+        if not isinstance(v, int) or v < 0:
+            raise ValueError(
+                f"{program.name}: collective_signature()[{k!r}] must be a "
+                f"non-negative int, got {v!r}"
+            )
+    return sig
 
 
 def _source_init(

@@ -1,11 +1,11 @@
-"""``GraphSession``: one handle over a (mutating) graph and its engines, on
-the dense engine (the port of ``repro.graph.session``).
+"""``GraphSession``: one handle over a (mutating) graph and its engines (the
+port of ``repro.graph.session``).
 
 A session owns the *current* ``PartitionedGraph`` plus one frozen
 ``EngineConfig`` and exposes the workflows that otherwise wire three
 constructors by hand:
 
-    session = open_session(pg, EngineConfig(device="cuda"))
+    session = open_session(pg, EngineConfig(mesh=partition_mesh(8), mirror_degree=8))
     res = session.run(program, sources=[0, 7])          # full traversal
     state = session.init_state([0]); ...                # windowed traversal
     wres = session.run_window(state)
@@ -13,9 +13,13 @@ constructors by hand:
 
 ``apply_deltas`` is the window-boundary mutation seam from ``graph.deltas``:
 it collapses the buffer into a new graph, optionally runs the bounded
-repartitioner (``core.repartition``), and carries any in-flight window state
-exactly -- re-activating inserted-edge sources so a monotone traversal
-continued on the merged graph converges to the mutated graph's fixpoint.
+repartitioner (``core.repartition``), incrementally merges the mesh layout
+(byte-identical to scratch; the merged layout lands in the new graph's
+caches so the next engine adopts it instead of rebuilding), and carries any
+in-flight window state exactly -- re-activating inserted-edge sources so a
+monotone traversal continued on the merged graph converges to the mutated
+graph's fixpoint.  On a mesh every rank holds a session and calls the same
+methods (the merge and the carry are collectives).
 Deletes cannot be carried under (state must be None); stationary programs
 cannot be carried at all.
 
@@ -34,7 +38,12 @@ from repro_torch.core.repartition import (
     incremental_repartition,
 )
 from repro_torch.graph.config import EngineConfig, resolve_device
-from repro_torch.graph.deltas import EdgeDeltaBuffer, merge_buffer, reactivate_sources
+from repro_torch.graph.deltas import (
+    EdgeDeltaBuffer,
+    carry_state,
+    merge_buffer,
+    reactivate_sources,
+)
 from repro_torch.graph.structs import PartitionedGraph
 from repro_torch.graph.traversal import TraversalEngine, TraversalResult, get_engine
 
@@ -65,10 +74,13 @@ class GraphSession:
     def init_state(self, sources, *, program=None):
         return self.engine(program).init_state(list(sources))
 
-    def run_window(self, state, k: int | None = None, *, program=None):
+    def run_window(self, state, k: int | None = None, *, program=None,
+                   device_of_part=None):
         """Advance ``state`` by ``k`` supersteps (default: config.window)."""
         k = self.config.window if k is None else int(k)
-        return self.engine(program).run_window(state, k)
+        return self.engine(program).run_window(
+            state, k, device_of_part=device_of_part
+        )
 
     # -- mutation ------------------------------------------------------------
 
@@ -84,10 +96,12 @@ class GraphSession:
         ``state`` (or None when none was passed).
 
         The merge path: new graph and optional bounded repartition
-        (``graph.deltas.merge_buffer``) -> exact state carry +
+        (``graph.deltas.merge_buffer``) -> incremental mesh-layout merge
+        primed into the new graph's caches -> exact state carry +
         inserted-source reactivation.  ``repartition=True`` uses a default
-        ``RepartitionConfig``.
+        ``RepartitionConfig`` with the session's mirror degree.
         """
+        old_layout = None
         if state is not None:
             if buf.has_deletes:
                 raise ValueError(
@@ -100,13 +114,27 @@ class GraphSession:
                     "state carry across a merge is monotone-programs-only "
                     f"(got stationary {prog.key})"
                 )
+        mesh = self.config.mesh
+        if mesh is not None and mesh.world_size > 1:
+            # with or without in-flight state, prime the merged layout so the
+            # next engine build reuses the unchanged device blocks
+            old_layout = self.engine(program)._mesh_prog.layout
 
-        self.pg, self.last_repartition = merge_buffer(self.pg, buf, repartition)
+        self.pg, self.last_repartition = merge_buffer(
+            self.pg, buf, repartition, old_layout=old_layout,
+            mirror_degree=self.config.mirror_degree, mesh=mesh,
+        )
         if state is None:
             return None
+        new_engine = self.engine(program)
+        new_prog = new_engine._mesh_prog
+        new_layout = None if new_prog is None else new_prog.layout
+        identity = new_engine.program.identity
         # dense state is in global vertex order, which the merge keeps
+        state = carry_state(old_layout, new_layout, state, identity=identity, mesh=mesh)
         return reactivate_sources(
-            state, None, buf.inserts()[0], identity=self.engine(program).program.identity
+            state, new_layout, buf.inserts()[0], identity=identity,
+            rank=None if new_prog is None else new_prog.rank,
         )
 
     def repartition(
@@ -114,7 +142,8 @@ class GraphSession:
     ) -> RepartitionResult:
         """Run one bounded repartition pass; adopt the improved map."""
         rep = incremental_repartition(
-            self.pg, config=config or RepartitionConfig()
+            self.pg,
+            config=config or RepartitionConfig(mirror_degree=self.config.mirror_degree),
         )
         self.pg = rep.pg
         self.last_repartition = rep
@@ -132,7 +161,8 @@ class GraphSession:
 
     def gather_global(self, rows) -> np.ndarray:
         """Engine-layout state rows (a tensor or host numpy) in global
-        vertex order on the host."""
+        vertex order on the host (on a mesh, this rank's block gathered
+        from every rank: a collective)."""
         return self.engine().gather_global(rows)
 
 

@@ -7,8 +7,9 @@ paper's metagraph is built from.
 
 Construction is host-side numpy; the BSP/traversal layers consume the arrays
 as torch tensors on the engine's device.  This is the port's own copy of
-``repro.graph.structs`` (dense-engine parts only): the port never imports the
-JAX package.
+``repro.graph.structs``: the port never imports the JAX package.  The mesh
+layout's TPU block maps give way to per-plane CSR offsets
+(``MeshEdgeLayout.row_ptr``), the relax kernel's indexing.
 """
 
 from __future__ import annotations
@@ -154,6 +155,37 @@ class CsrEdgeLayout:
         )
 
 
+def stable_argsort(keys: np.ndarray, n_keys: int) -> np.ndarray:
+    """``np.argsort(keys, kind="stable")`` (int64) for integer keys in
+    ``[0, n_keys)``.  Each key packed above its position is unique, so
+    numpy's fastest (unstable) sort orders the packed values the same way,
+    and the positions read back from the low bits are the stable order --
+    several times faster than the stable sort on tens of millions of keys.
+    """
+    e = int(keys.shape[0])
+    bits = max(1, e.bit_length())
+    if int(n_keys).bit_length() + bits > 63:
+        return np.argsort(keys, kind="stable")
+    packed = np.left_shift(keys.astype(np.int64), bits)
+    packed |= np.arange(e, dtype=np.int64)
+    packed.sort()
+    packed &= (1 << bits) - 1
+    return packed
+
+
+def sorted_distinct(a: np.ndarray) -> np.ndarray:
+    """``np.unique(a)`` by a sort and a scan of run boundaries.  numpy 2.3
+    may answer ``np.unique`` from a hash table, which on tens of millions of
+    distinct int64 keys is far slower than the sort."""
+    a = np.sort(a)
+    if a.size < 2:
+        return a
+    keep = np.empty(a.size, dtype=bool)
+    keep[0] = True
+    np.not_equal(a[1:], a[:-1], out=keep[1:])
+    return a[keep]
+
+
 def dst_sorted_layout(
     n_vertices: int,
     src: np.ndarray,
@@ -161,7 +193,7 @@ def dst_sorted_layout(
     weights: np.ndarray | None = None,
 ) -> CsrEdgeLayout:
     """Build the static dst-sorted layout for an edge set (host-side, once)."""
-    order = np.argsort(dst, kind="stable")
+    order = stable_argsort(dst, n_vertices)
     w = (
         np.ones(src.shape[0], dtype=np.float32)
         if weights is None
@@ -174,6 +206,290 @@ def dst_sorted_layout(
         weights=w[order],
         perm=order.astype(np.int64),
     )
+
+
+def mesh_layout_key(
+    device_of_part: np.ndarray, n_devices: int, generation: int = 0
+) -> tuple:
+    """Canonical cache key of a mesh layout: ``n_devices`` plus the *coerced*
+    partition -> device map's shape, dtype, and bytes, plus the graph's
+    edge-delta ``generation``.
+
+    Computed after the int32 coercion every consumer goes through, so callers
+    passing the same placement with different dtypes (an int64 plan row vs an
+    int32 stored map) hit one entry.  ``generation`` is the streaming-mutation
+    counter (``PartitionedGraph.__dict__['_delta_generation']``, bumped by
+    ``graph.deltas``): two layouts of the same placement built before and
+    after a delta merge carry different edge content under identical shapes,
+    so the generation is part of every key derived from this one.
+    """
+    coerced = np.ascontiguousarray(device_of_part, dtype=np.int32)
+    return (
+        int(n_devices), coerced.shape, coerced.dtype.str, coerced.tobytes(),
+        int(generation),
+    )
+
+
+#: the per-device reduction planes of a mesh layout (``MeshEdgeLayout.plane``)
+MESH_PLANES = ("local", "wire", "mirror")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshEdgeLayout:
+    """Static mesh-aware extension of ``CsrEdgeLayout`` (one per device map).
+
+    Extends the partitioned dst-sorted layout to a fixed assignment of
+    partitions onto ``n_devices`` mesh ranks so that every rank's shard is a
+    *fixed-shape* slice and every collective has a *static* payload:
+
+      * vertices are permuted device-major and padded to ``n_pad`` rows per
+        device (``pos_of_vertex``/``vertex_of_pos``); a rank's carried
+        traversal state is its ``[S, n_pad]`` block of the ``[S, D * n_pad]``
+        device-major axis,
+      * local (within-partition) edges are grouped per owning device and
+        padded to ``e_local_pad``, endpoints renumbered to device-local rows
+        (both endpoints of a local edge share a device because a partition is
+        never split across devices),
+      * remote (cross-partition) edges are grouped by
+        ``(src_device, dst_device)`` block; within each block the *distinct*
+        destination vertices define static wire slots (``w_pad`` slots per
+        block), so the superstep-boundary exchange aggregates per-destination
+        **before** the collective -- one message per
+        ``(dst_vertex, dst_device)``, not one per edge -- and the all-to-all
+        payload is the fixed ``[n_devices, w_pad]`` buffer,
+      * optionally (``mirror_degree`` is not None), *hub* destinations --
+        vertices whose cross-partition in-degree meets the threshold -- are
+        pulled out of the wire plane into a structurally identical *mirror*
+        plane: every source device holds one mirror slot per
+        ``(owner_device, hub)`` it sends into (``m_pad`` slots per block),
+        and a second all-to-all syncs each mirror to its owner once per
+        superstep (``graph.mesh_exchange`` has the exactness argument).
+
+    All index arrays carry explicit validity masks; padded entries are wired
+    to contribute identity values (``inf`` under min, ``0`` under sum).  Built
+    host-side once per ``(PartitionedGraph, device_of_part)`` by
+    ``partition.mesh_edge_layout``, field for field the JAX package's layout.
+
+    ``l_eid``/``r_eid`` map every per-device edge slot back to its row in the
+    partition layout's dst-sorted local/remote edge sets, so a per-program
+    edge-weight plane can be scattered into the padded per-device shape
+    without rebuilding the layout.  The layout is also the single owner of the
+    *state indexing* helpers (``state_index_of_vertex`` / ``gather_global``).
+    """
+
+    n_devices: int
+    n_vertices: int
+    n_parts: int
+    device_of_part: np.ndarray  # [P] int32 owning device per partition
+    # -- vertex shard views --------------------------------------------------
+    n_pad: int  # padded vertex rows per device
+    pos_of_vertex: np.ndarray  # [n] int64: device-major padded position
+    vertex_of_pos: np.ndarray  # [D * n_pad] int64, -1 on padding rows
+    part_of_pos: np.ndarray  # [D, n_pad] int32 (0 on padding; masked by valid)
+    pos_valid: np.ndarray  # [D, n_pad] bool
+    # -- per-device local edges (device-local dst ascending) -----------------
+    e_local_pad: int
+    lsrc: np.ndarray  # [D, e_local_pad] int32 device-local src row
+    ldst: np.ndarray  # [D, e_local_pad] int32 device-local dst row, ascending
+    lw: np.ndarray  # [D, e_local_pad] float32
+    lpart: np.ndarray  # [D, e_local_pad] int32 partition of each edge
+    lvalid: np.ndarray  # [D, e_local_pad] bool
+    l_eid: np.ndarray  # [D, e_local_pad] int64 row in the dst-sorted local set
+    # -- per-device remote out-edges, (dst_device, dst_vertex)-sorted --------
+    e_remote_pad: int
+    w_pad: int  # wire slots per (src_device, dst_device) block
+    rsrc: np.ndarray  # [D, e_remote_pad] int32 device-local src row
+    rw: np.ndarray  # [D, e_remote_pad] float32
+    rslot: np.ndarray  # [D, e_remote_pad] int32 in [0, D*w_pad), ascending
+    rpart: np.ndarray  # [D, e_remote_pad] int32 src partition of each edge
+    rvalid: np.ndarray  # [D, e_remote_pad] bool
+    r_eid: np.ndarray  # [D, e_remote_pad] int64 row in the dst-sorted remote set
+    # -- receive side: wire slot -> device-local dst row ---------------------
+    recv_idx: np.ndarray  # [D_recv, D_send, w_pad] int32 (0 on padding slots)
+    # -- static exchange metadata (bench / diagnostics) ----------------------
+    wire_slots: np.ndarray  # [D_send, D_recv] int64 distinct-dst slot counts
+    remote_block_edges: np.ndarray  # [D_send, D_recv] int64 raw edge counts
+    # -- hub mirroring (zero-width when mirror_degree selects no hubs) -------
+    mirror_degree: int | None = None  # threshold the layout was built with
+    e_mirror_pad: int = 0  # padded hub edges per source device
+    m_pad: int = 0  # mirror slots per (src_device, owner_device) block
+    msrc: np.ndarray | None = None  # [D, e_mirror_pad] int32 device-local src
+    mw: np.ndarray | None = None  # [D, e_mirror_pad] float32
+    mslot: np.ndarray | None = None  # [D, e_mirror_pad] int32 in [0, D*m_pad)
+    mpart: np.ndarray | None = None  # [D, e_mirror_pad] int32 src partition
+    mvalid: np.ndarray | None = None  # [D, e_mirror_pad] bool
+    m_eid: np.ndarray | None = None  # [D, e_mirror_pad] int64 remote-set row
+    mrecv_idx: np.ndarray | None = None  # [D_recv, D_send, m_pad] int32
+    mirror_slots: np.ndarray | None = None  # [D_send, D_recv] int64 hub slots
+    mirror_block_edges: np.ndarray | None = None  # [D_send, D_recv] int64
+    # -- streaming mutations -------------------------------------------------
+    delta_generation: int = 0  # graph's edge-delta counter at build time
+
+    @property
+    def state_width(self) -> int:
+        """Width of the device-major state axis: ``n_devices * n_pad``."""
+        return self.n_devices * self.n_pad
+
+    @property
+    def layout_key(self) -> tuple:
+        """This layout's canonical cache key (``mesh_layout_key`` of its own
+        map and delta generation plus the mirror knob)."""
+        return mesh_layout_key(
+            self.device_of_part, self.n_devices, self.delta_generation
+        ) + (self.mirror_degree,)
+
+    # -- shared state indexing -----------------------------------------------
+
+    @property
+    def state_index_of_vertex(self) -> np.ndarray:
+        """[n] position of each global vertex in the device-major state axis."""
+        return self.pos_of_vertex
+
+    def gather_global(self, state_rows: np.ndarray) -> np.ndarray:
+        """Map device-major state ``[..., D * n_pad]`` back to global vertex
+        order ``[..., n]``."""
+        return np.asarray(state_rows)[..., self.pos_of_vertex]
+
+    # -- per-device CSR offsets (the relax kernel's indexing) ----------------
+    #
+    # Each rank's reduction problem is the kernel's shape: ``ldst[d]`` is
+    # ascending over ``n_pad`` device-local rows (pad value ``n_pad - 1``),
+    # ``rslot[d]`` over ``n_devices * w_pad`` wire slots (pad value
+    # ``D * w_pad - 1``) and ``mslot[d]`` over ``n_devices * m_pad`` mirror
+    # slots.  Padded edges point at real rows but carry identity candidates,
+    # so they are reduction no-ops.
+
+    def plane(self, kind: str, d: int) -> tuple[np.ndarray, int, int]:
+        """``(rows [e_pad] ascending, n_segments, n_valid_edges)`` of one
+        rank's ``kind`` plane (``"local"``, ``"wire"`` or ``"mirror"``)."""
+        if kind == "local":
+            rows, nseg, valid = self.ldst[d], self.n_pad, self.lvalid[d]
+        elif kind == "wire":
+            rows, nseg, valid = self.rslot[d], self.n_devices * self.w_pad, self.rvalid[d]
+        elif kind == "mirror":
+            rows, nseg, valid = self.mslot[d], self.n_devices * self.m_pad, self.mvalid[d]
+        else:
+            raise ValueError(f"plane must be one of {MESH_PLANES}, got {kind!r}")
+        return rows, int(nseg), int(np.count_nonzero(valid))
+
+    def row_ptr(self, kind: str, d: int) -> np.ndarray:
+        """``[n_segments + 1]`` int32 CSR offsets of rank ``d``'s ``kind``
+        plane, cached per ``(kind, d)``."""
+        rows, nseg, _ = self.plane(kind, d)
+        return side_cache(self, "_row_ptr_cache").get_or_build(
+            (str(kind), int(d)), lambda: row_ptr_for(rows, nseg)
+        )
+
+
+#: the per-rank rows of a ``MeshEdgeLayout`` that a ``MeshRankLayout`` keeps
+#: (its ``[D, ...]`` fields at index ``rank``); the per-edge partition ids
+#: (``lpart``/``rpart``/``mpart``) are not kept: the engine never reads them
+MESH_RANK_ROWS = (
+    "part_of_pos", "pos_valid",
+    "lsrc", "ldst", "lw", "lvalid", "l_eid",
+    "rsrc", "rw", "rslot", "rvalid", "r_eid", "recv_idx",
+    "msrc", "mw", "mslot", "mvalid", "m_eid", "mrecv_idx",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshRankLayout:
+    """One rank's block of a ``MeshEdgeLayout``: what a mesh rank computes
+    on, built by ``partition.mesh_rank_layout`` without the other ranks'
+    planes.
+
+    Every ``MESH_RANK_ROWS`` field is the full layout's row ``rank``
+    (``recv_idx``/``mrecv_idx``: ``[D_send, pad]``, the slots this rank
+    receives); ``vertex_of_pos`` is the rank's ``[n_pad]`` slice.  The
+    global parts are kept whole: the vertex permutation ``pos_of_vertex``
+    (``[n]``, the state indexing every rank shares) and the ``[D, D]``
+    block counts that fix ``w_pad``/``m_pad`` (gathered from every rank).
+    """
+
+    rank: int
+    n_devices: int
+    n_vertices: int
+    n_parts: int
+    device_of_part: np.ndarray  # [P] int32
+    n_pad: int
+    pos_of_vertex: np.ndarray  # [n] int64, global
+    vertex_of_pos: np.ndarray  # [n_pad] int64, -1 on padding rows
+    part_of_pos: np.ndarray  # [n_pad] int32
+    pos_valid: np.ndarray  # [n_pad] bool
+    e_local_pad: int
+    lsrc: np.ndarray  # [e_local_pad] int32
+    ldst: np.ndarray  # [e_local_pad] int32 ascending
+    lw: np.ndarray  # [e_local_pad] float32
+    lvalid: np.ndarray  # [e_local_pad] bool
+    l_eid: np.ndarray  # [e_local_pad] int64
+    e_remote_pad: int
+    w_pad: int
+    rsrc: np.ndarray  # [e_remote_pad] int32
+    rw: np.ndarray  # [e_remote_pad] float32
+    rslot: np.ndarray  # [e_remote_pad] int32 ascending
+    rvalid: np.ndarray  # [e_remote_pad] bool
+    r_eid: np.ndarray  # [e_remote_pad] int64
+    recv_idx: np.ndarray  # [D_send, w_pad] int32
+    wire_slots: np.ndarray  # [D_send, D_recv] int64
+    remote_block_edges: np.ndarray  # [D_send, D_recv] int64
+    mirror_degree: int | None
+    e_mirror_pad: int
+    m_pad: int
+    msrc: np.ndarray  # [e_mirror_pad] int32
+    mw: np.ndarray  # [e_mirror_pad] float32
+    mslot: np.ndarray  # [e_mirror_pad] int32 ascending
+    mvalid: np.ndarray  # [e_mirror_pad] bool
+    m_eid: np.ndarray  # [e_mirror_pad] int64
+    mrecv_idx: np.ndarray  # [D_send, m_pad] int32
+    mirror_slots: np.ndarray  # [D_send, D_recv] int64
+    mirror_block_edges: np.ndarray  # [D_send, D_recv] int64
+    delta_generation: int = 0
+
+    @classmethod
+    def of(cls, ml: MeshEdgeLayout, rank: int) -> "MeshRankLayout":
+        """Rank ``rank``'s block of a full layout (views, no copies)."""
+        r = int(rank)
+        rows = {f: getattr(ml, f)[r] for f in MESH_RANK_ROWS}
+        whole = {
+            f.name: getattr(ml, f.name)
+            for f in dataclasses.fields(cls)
+            if f.name not in rows and f.name not in ("rank", "vertex_of_pos")
+        }
+        return cls(
+            rank=r, vertex_of_pos=ml.vertex_of_pos[r * ml.n_pad:(r + 1) * ml.n_pad],
+            **rows, **whole,
+        )
+
+    state_width = MeshEdgeLayout.state_width
+    layout_key = MeshEdgeLayout.layout_key
+    state_index_of_vertex = MeshEdgeLayout.state_index_of_vertex
+    gather_global = MeshEdgeLayout.gather_global
+
+    def plane(self, kind: str, d: int | None = None) -> tuple[np.ndarray, int, int]:
+        """``(rows [e_pad] ascending, n_segments, n_valid_edges)`` of this
+        rank's ``kind`` plane (``MeshEdgeLayout.plane``)."""
+        self._own(d)
+        if kind == "local":
+            rows, nseg, valid = self.ldst, self.n_pad, self.lvalid
+        elif kind == "wire":
+            rows, nseg, valid = self.rslot, self.n_devices * self.w_pad, self.rvalid
+        elif kind == "mirror":
+            rows, nseg, valid = self.mslot, self.n_devices * self.m_pad, self.mvalid
+        else:
+            raise ValueError(f"plane must be one of {MESH_PLANES}, got {kind!r}")
+        return rows, int(nseg), int(np.count_nonzero(valid))
+
+    def row_ptr(self, kind: str, d: int | None = None) -> np.ndarray:
+        """``[n_segments + 1]`` int32 CSR offsets of this rank's ``kind``
+        plane, cached per kind."""
+        rows, nseg, _ = self.plane(kind, d)
+        return side_cache(self, "_row_ptr_cache").get_or_build(
+            str(kind), lambda: row_ptr_for(rows, nseg)
+        )
+
+    def _own(self, d) -> None:
+        if d is not None and int(d) != self.rank:
+            raise ValueError(f"rank {self.rank}'s layout holds no plane of rank {d}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,7 +518,7 @@ class Graph:
     @cached_property
     def csr(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(row_ptr [n+1], col_idx [E], edge_id [E]) sorted by src."""
-        order = np.argsort(self.src, kind="stable")
+        order = stable_argsort(self.src, self.n_vertices)
         col = self.dst[order]
         counts = np.bincount(self.src, minlength=self.n_vertices)
         row_ptr = np.zeros(self.n_vertices + 1, dtype=np.int64)
@@ -221,6 +537,15 @@ class Graph:
         if self.weights is not None:
             w = np.concatenate([self.weights, self.weights])
         key = s.astype(np.int64) * self.n_vertices + d
+        if w is None:
+            # the distinct keys alone give src and dst (no first-occurrence
+            # index to find, which costs a stable sort)
+            key = sorted_distinct(key)
+            return Graph(
+                self.n_vertices,
+                (key // self.n_vertices).astype(np.int32),
+                (key % self.n_vertices).astype(np.int32),
+            )
         _, idx = np.unique(key, return_index=True)
         return Graph(
             self.n_vertices,

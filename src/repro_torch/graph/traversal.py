@@ -39,9 +39,20 @@ leaves; ``init_state`` / ``run_window`` run it resumably, leaving the
 carried state on the device between windows; ``backfill_rows`` swaps batch
 rows at a window boundary.  ``state_index_of_vertex``, ``gather_global``
 and ``device_of_part`` are the state-layout accessors the elastic executor
-and the session read (identity and ``None`` here: the dense engine keeps
-state in global vertex order on one device).  ``make_superstep_fn`` is the
-one-superstep equivalence oracle.
+and the session read (identity and ``None`` on the dense engine, which
+keeps state in global vertex order on one device).  ``make_superstep_fn``
+is the one-superstep equivalence oracle.
+
+**Mesh mode** (``EngineConfig.mesh``, a ``dist.PartitionMesh`` of at least
+two ranks): every rank runs the same engine calls on its own block of the
+padded device-major layout (``graph.mesh_exchange.MeshTraversalProgram``).
+``init_state``/``run_window``/``backfill_rows`` work on this rank's
+``[S, n_pad]`` block, the counters they return are global (reduced over the
+ranks), ``run`` and ``gather_global`` gather the state back to global
+vertex order (a collective: every rank calls them), ``state_index_of_vertex``
+is the device-major position of each vertex, ``device_of_part`` the active
+map, and ``run_window(..., device_of_part=)`` re-lays the compute out
+between windows.  A one-rank mesh takes the dense path.
 """
 
 from __future__ import annotations
@@ -267,6 +278,19 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _engine_device(cfg: EngineConfig) -> torch.device:
+    """The device an engine runs on: ``config.device``, or on a mesh the
+    rank's own device, whose type must match ``config.device``'s."""
+    if cfg.mesh is None:
+        return resolve_device(cfg.device)
+    dev = resolve_device(cfg.mesh.device)
+    if dev.type != torch.device(cfg.device).type:
+        raise ValueError(
+            f"the mesh's rank runs on {dev}, but the config asks for {cfg.device!r}"
+        )
+    return dev
+
+
 class TraversalEngine:
     """Device-resident multi-source BSP traversal over a static CSR layout.
 
@@ -274,6 +298,9 @@ class TraversalEngine:
     without CUDA raises); ``config.backend`` picks the relax reduction.
     ``host_syncs`` counts the booleans read back to the host by every
     launch (loop conditions) plus one per bulk pull of results.
+    ``bulk_pulls`` counts the bulk pulls alone: a window's or a run's
+    counters (with a dense run's state), and each state tensor a mesh
+    gathers from its ranks to the host.
     """
 
     def __init__(
@@ -282,10 +309,11 @@ class TraversalEngine:
         *,
         program: VertexProgram | None = None,
         config: EngineConfig | None = None,
+        device_of_part: np.ndarray | None = None,
     ):
         cfg = config or EngineConfig()
         self.config = cfg
-        self.device = resolve_device(cfg.device)
+        self.device = _engine_device(cfg)
         self.backend = validate_backend(cfg.backend, self.device)
         self.pg = pg
         self.program = validate_program(program or SsspProgram())
@@ -295,6 +323,22 @@ class TraversalEngine:
         self.n_parts = pg.n_parts
         self.n_subgraphs = pg.n_subgraphs if self.collect_subgraphs else 0
         self.host_syncs = 0
+        self.bulk_pulls = 0
+        self._mesh_prog = None
+        if cfg.mesh is not None and cfg.mesh.world_size > 1:
+            if self.collect_subgraphs:
+                raise NotImplementedError(
+                    "collect_subgraphs is dense-engine-only; run the metagraph "
+                    "ground-truth pass without a mesh"
+                )
+            from repro_torch.graph.mesh_exchange import MeshTraversalProgram
+
+            self._mesh_prog = MeshTraversalProgram(
+                pg, cfg.mesh, device_of_part=device_of_part, program=self.program,
+                backend=self.backend,
+                mirror_degree=None if cfg.mirror_degree is None else int(cfg.mirror_degree),
+            )
+            return
         layout = partitioned_edge_layout(pg)
         reduce = self.program.reduce
         self._relax_l = make_relax_fn(
@@ -317,25 +361,48 @@ class TraversalEngine:
     # -- state layout (identity on the dense engine) ------------------------
 
     @property
-    def device_of_part(self) -> None:
-        """The active partition -> device map: ``None`` on the dense engine,
-        where one device computes every partition (a map comes with the
-        multi-GPU engine)."""
+    def device_of_part(self) -> np.ndarray | None:
+        """The active partition -> rank map of a mesh engine (the compute
+        placement the next window runs on); ``None`` on the dense engine,
+        where one device computes every partition."""
+        if self._mesh_prog is not None:
+            return self._mesh_prog.layout.device_of_part
         return None
 
     @property
     def state_index_of_vertex(self) -> np.ndarray:
         """[n] index of each vertex in the carried state's trailing axis:
-        the identity on the dense engine."""
+        the identity on the dense engine, the padded device-major position
+        (``MeshEdgeLayout.state_index_of_vertex``) on a mesh, where rank
+        ``r`` holds positions ``[r * n_pad, (r + 1) * n_pad)``."""
+        if self._mesh_prog is not None:
+            return self._mesh_prog.layout.state_index_of_vertex
         return np.arange(self.n, dtype=np.int64)
 
     def gather_global(self, state_rows) -> np.ndarray:
-        """Carried state rows ``[..., n]`` (a tensor on any device, or host
-        numpy) in global vertex order on the host: the identity on the
-        dense engine."""
+        """Carried state rows in global vertex order on the host.
+
+        Dense: ``[..., n]`` rows (a tensor on any device, or host numpy) as
+        they are.  Mesh: full-width ``[..., D * n_pad]`` device-major rows
+        are indexed on the host; this rank's ``[..., n_pad]`` block is
+        gathered from every rank first (a collective)."""
+        if self._mesh_prog is not None:
+            width = state_rows.shape[-1]
+            if width == self._mesh_prog.layout.state_width:
+                rows = _to_host(state_rows) if isinstance(state_rows, torch.Tensor) else state_rows
+                return self._mesh_prog.layout.gather_global(rows)
+            if not isinstance(state_rows, torch.Tensor):
+                state_rows = torch.as_tensor(np.asarray(state_rows), device=self.device)
+            return self._gather(state_rows)
         if isinstance(state_rows, torch.Tensor):
             return _to_host(state_rows)
         return np.asarray(state_rows)
+
+    def _gather(self, rows: torch.Tensor) -> np.ndarray:
+        """This rank's block gathered to global order on the host (a
+        collective and a bulk pull)."""
+        self.bulk_pulls += 1
+        return self._mesh_prog.gather(rows)
 
     def _any(self, t: torch.Tensor) -> bool:
         """One host read of ``t.any()`` -- a loop condition."""
@@ -432,6 +499,16 @@ class TraversalEngine:
         wire = torch.zeros((s_batch, m_max), dtype=i32, **kw)  # dense: no wire
         return TraversalResult(d, fr, nst, we, wv, ms, it, sg, wire), pact, done
 
+    def _launch(self, dist, frontier, nst0, k: int):
+        """One window on whichever program this engine runs; the mesh
+        program's loop reads count into ``host_syncs``."""
+        if self._mesh_prog is not None:
+            reads0 = self._mesh_prog.host_reads
+            res, pact, done = self._mesh_prog.window(dist, frontier, nst0, k)
+            self.host_syncs += self._mesh_prog.host_reads - reads0
+            return TraversalResult(*res), pact, done
+        return self._window_impl(dist, frontier, nst0, k)
+
     # -- host API ------------------------------------------------------------
 
     def init_state(self, sources) -> WindowState:
@@ -439,9 +516,15 @@ class TraversalEngine:
 
         The program defines the initial ``(state, frontier)`` in global
         vertex order (``sources`` sizes the batch for source-free programs
-        like WCC/PageRank).
+        like WCC/PageRank); a mesh rank keeps its own rows of it.
         """
         sources = np.atleast_1d(np.asarray(sources, dtype=np.int64))
+        if self._mesh_prog is not None:
+            dist, frontier = self._mesh_prog.init_state(sources)
+            return WindowState(
+                dist, frontier,
+                torch.zeros((sources.shape[0],), dtype=torch.int32, device=self.device),
+            )
         state, frontier = self.program.init(self.pg, sources)
         return WindowState(
             torch.as_tensor(state, device=self.device),
@@ -456,7 +539,9 @@ class TraversalEngine:
         through ``program.init`` -- the row a fresh ``init_state`` batch
         would carry.  ``sources[i] == -1`` *deactivates* the row: identity
         state, empty frontier.  Either way the row's ``n_supersteps``
-        restarts at 0.  The input state is not modified.
+        restarts at 0.  The input state is not modified.  On a mesh the
+        surgery runs on this rank's block, which must be laid out for the
+        engine's *current* ``device_of_part`` (run any re-layout first).
         """
         rows = np.atleast_1d(np.asarray(rows, dtype=np.int64))
         sources = np.atleast_1d(np.asarray(sources, dtype=np.int64))
@@ -483,20 +568,31 @@ class TraversalEngine:
         nst[rows_t] = 0
         return WindowState(dist, frontier, nst)
 
-    def run_window(self, state: WindowState, k: int) -> WindowResult:
+    def run_window(
+        self, state: WindowState, k: int, *, device_of_part: np.ndarray | None = None
+    ) -> WindowResult:
         """Run up to ``k`` more supersteps from ``state``.
 
         Sources whose frontier empties mid-window simply stop contributing
         counter rows (no convergence raise -- check ``done``).  The counters
         come back to the host; the carried state stays on the device.
+
+        ``device_of_part`` (mesh mode) re-lays the compute out before the
+        window: the engine swaps to the rank's matching ``MeshRankLayout``
+        (incrementally rebuilt) and the carried state moves between ranks
+        exactly (``mesh_exchange.relayout_state``), so results stay
+        identical to a static-layout run.  The dense engine ignores it.
         """
         k = int(k)
         if k < 1:
             raise ValueError(f"window size must be >= 1, got {k}")
-        res, pact, done = self._window_impl(
+        if device_of_part is not None and self._mesh_prog is not None:
+            state, _ = self._mesh_prog.ensure_layout(state, device_of_part)
+        res, pact, done = self._launch(
             state.dist, state.frontier, state.n_supersteps, k
         )
         self.host_syncs += 1
+        self.bulk_pulls += 1
         return WindowResult(
             state=WindowState(res.dist, res.frontier, res.n_supersteps),
             n_supersteps=_to_host(res.n_supersteps),
@@ -516,11 +612,17 @@ class TraversalEngine:
         source failed to converge within ``m_max`` supersteps.
         """
         state = self.init_state(sources)
-        res, _, _ = self._window_impl(
+        res, _, _ = self._launch(
             state.dist, state.frontier, state.n_supersteps, self.m_max
         )
         self.host_syncs += 1
-        res = TraversalResult(*(_to_host(t) for t in res))
+        self.bulk_pulls += 1
+        if self._mesh_prog is not None:
+            # this rank's blocks -> global vertex order (a collective)
+            res = res._replace(dist=self._gather(res.dist), frontier=self._gather(res.frontier))
+        res = TraversalResult(
+            *(_to_host(t) if isinstance(t, torch.Tensor) else t for t in res)
+        )
         if not self.program.converged(bool(res.frontier.any())):
             raise TraversalNotConverged(self.m_max, res)
         return res
@@ -535,15 +637,20 @@ def get_engine(
     """Per-graph engine cache (keyed by the knobs, stored on the instance).
 
     Engines are keyed by ``program.key`` (default ``SsspProgram``), the
-    resolved device and backend, ``m_max`` and ``collect_subgraphs``.
+    resolved device and backend, ``m_max``, ``collect_subgraphs`` and, in
+    mesh mode, the mesh and the hub threshold ``mirror_degree``; the default
+    balanced contiguous partition map is assumed (construct
+    ``TraversalEngine`` directly for another ``device_of_part``).
     """
     cfg = config or EngineConfig()
-    device = resolve_device(cfg.device)
+    device = _engine_device(cfg)
     backend = validate_backend(cfg.backend, device)
     prog_key = (program or SsspProgram()).key
+    mesh_key = None if cfg.mesh is None else cfg.mesh.key
+    mirror_key = None if cfg.mirror_degree is None else int(cfg.mirror_degree)
     key = (
         int(cfg.m_max), bool(cfg.collect_subgraphs), prog_key,
-        str(backend), str(device),
+        str(backend), str(device), mesh_key, mirror_key,
     )
     return _pg_cached(
         pg, "_traversal_engines", key,

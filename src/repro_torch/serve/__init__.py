@@ -1,5 +1,6 @@
 """Traversal-as-a-service: the paper's elastic placement under real load
-(the port of ``repro.serve``, on the dense engine).
+(the port of ``repro.serve``; the engine dense or on a mesh, as
+``engine_config`` says).
 
 The subsystem turns the batch-oriented traversal stack into a serving front
 end: a stream of ``TraversalQuery(source, program, deadline)`` requests is

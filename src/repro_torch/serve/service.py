@@ -1,5 +1,8 @@
 """Traversal-as-a-service: deterministic simulated-clock serving loop (the
-port of ``repro.serve.service``, on the dense engine).
+port of ``repro.serve.service``).  ``engine_config=`` selects the engine;
+with ``EngineConfig.mesh`` every rank runs the same service loop on its
+block of the mesh engine's state (the decisions read only global counters,
+so they agree on every rank).
 
 ``TraversalService.run(trace)`` consumes an open-loop arrival trace --
 ``(arrival_time, TraversalQuery)`` pairs in simulated seconds -- and drives
@@ -228,9 +231,12 @@ class TraversalService:
         The graph swap happens *between* service turns (a window boundary for
         every lane), so in-flight batch state is carried exactly: edge-only
         inserts leave the vertex plane untouched (the dense carry is the
-        identity), and every inserted-edge source re-enters the frontier so
-        monotone lanes converge to the mutated graph's fixpoint
-        (``graph.deltas``).  Each lane's engine is rebuilt on the new graph.
+        identity, a mesh one a pure ``relayout_state`` permutation when an
+        edge pad grew), and every inserted-edge source re-enters the
+        frontier so monotone lanes converge to the mutated graph's fixpoint
+        (``graph.deltas``).  Each lane's engine is rebuilt on the new graph;
+        mesh lanes merge their layout incrementally first
+        (``merged_mesh_layout``), so the rebuild reuses unchanged blocks.
         Deletes cannot be un-relaxed, so a buffer with deletes is only
         accepted while no lane holds live rows (idle lanes drop their
         phantom-only state instead).
@@ -253,6 +259,12 @@ class TraversalService:
             return
         isrc, _, _ = buf.inserts()
         for lane in lanes.values():
+            old_prog = lane.engine._mesh_prog
+            old_layout = None if old_prog is None else old_prog.layout
+            if old_layout is not None:
+                graph_deltas.merged_mesh_layout(
+                    old_pg, new_pg, old_layout, mesh=self.engine_config.mesh
+                )
             new_engine = self._engine_for(lane.engine.program, new_pg)
             batcher = lane.batcher
             if batcher.state is not None and batcher.n_live == 0:
@@ -260,11 +272,20 @@ class TraversalService:
                 batcher.state = None
                 batcher.last_nst[:] = 0
                 batcher._kills.clear()
-            elif batcher.state is not None and isrc.size:
-                # dense state is in global vertex order, which the merge keeps
-                batcher.state = graph_deltas.reactivate_sources(
-                    batcher.state, None, isrc, identity=new_engine.program.identity
+            elif batcher.state is not None:
+                new_prog = new_engine._mesh_prog
+                new_layout = None if new_prog is None else new_prog.layout
+                identity = new_engine.program.identity
+                state = graph_deltas.carry_state(
+                    old_layout, new_layout, batcher.state,
+                    identity=identity, mesh=self.engine_config.mesh,
                 )
+                if isrc.size:
+                    state = graph_deltas.reactivate_sources(
+                        state, new_layout, isrc, identity=identity,
+                        rank=None if new_prog is None else new_prog.rank,
+                    )
+                batcher.state = state
             lane.engine = new_engine
             batcher.engine = new_engine
         self.pg = new_pg

@@ -17,7 +17,10 @@ TF32 off), ``2e-2`` in bfloat16 (the kernel rounds P to bfloat16 for the
 PV product, as the TPU kernel does), the JAX tests' tolerances; bfloat16
 also within ``bf16_tolerance_ratio``'s bound, which scales with each row.
 Executor and service: BFS state bit-identical, reports equal field by field
-(except wall seconds), as on the CPU against the JAX package.
+(except wall seconds), as on the CPU against the JAX package.  Mesh: two
+ranks (``repro_torch.dist.run_ranks``) share the card over gloo, or run on
+two cards over NCCL where two are visible; state and every counter equal
+the dense engine's on the card (PageRank state to rtol 1e-5).
 """
 
 import dataclasses
@@ -452,3 +455,80 @@ def test_serving_lane_splits_each_layout_once(cuda_device):
     assert relax_rowptr.launches > launches
     assert relax_rowptr.partition_launches == splits
     assert len(pg.__dict__["_traversal_engines"]) == 1
+
+
+# -- the multi-GPU engine on the card ----------------------------------------------
+
+
+def _mesh_graph():
+    return bfs_grow_partition(weighted(rmat_graph(10, 8, seed=3), seed=2), 5, seed=1)
+
+
+def _rank_mesh_run(name: str, mirror_degree) -> dict:
+    """One rank's run of ``name`` on the mesh, with the relax kernel's
+    launches on this rank and the rank's transport."""
+    from repro_torch.dist import partition_mesh
+
+    mesh = partition_mesh()
+    before = relax_rowptr.launches
+    eng = TraversalEngine(
+        _mesh_graph(), program=BUILTIN_PROGRAMS[name](),
+        config=EngineConfig(device="cuda", mesh=mesh, m_max=64, mirror_degree=mirror_degree),
+    )
+    res = eng.run([0, 37, 200])
+    return {
+        "result": {f: getattr(res, f) for f in res._fields},
+        "launches": relax_rowptr.launches - before,
+        "holds_edges": eng._mesh_prog.layout.plane("local", mesh.rank)[2]
+        + eng._mesh_prog.layout.plane("wire", mesh.rank)[2] > 0,
+        "mesh": mesh.describe(),
+    }
+
+
+def _assert_mesh_equals_dense(ranks, name):
+    dense = TraversalEngine(
+        _mesh_graph(), program=BUILTIN_PROGRAMS[name](),
+        config=EngineConfig(device="cuda", m_max=64),
+    ).run([0, 37, 200])
+    for rank in ranks:
+        assert not rank["holds_edges"] or rank["launches"] > 0
+        res = rank["result"]
+        for field in dense._fields:
+            a, b = res[field], getattr(dense, field)
+            if field == "wire_msgs":
+                assert a.sum() > 0 and b.sum() == 0
+            elif field == "dist" and name == "pagerank":
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-9)
+            else:
+                assert a.dtype == b.dtype and a.shape == b.shape, field
+                np.testing.assert_array_equal(a, b, err_msg=field)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mirror_degree", [None, 4], ids=["plain", "mirrored"])
+@pytest.mark.parametrize("name", sorted(BUILTIN_PROGRAMS))
+def test_gloo_mesh_on_one_card_matches_dense_engine(cuda_device, name, mirror_degree):
+    from repro_torch.dist import run_ranks
+
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("each rank gets its own card here: the NCCL test covers it")
+    relax_rowptr.load()  # build once here, not in both ranks at once
+    ranks = run_ranks(_rank_mesh_run, 2, device="cuda", timeout=600,
+                      args=(name, mirror_degree))
+    assert ranks.backend == "gloo" and ranks.devices == ["cuda:0", "cuda:0"]
+    assert all(r["mesh"]["transport"] == "direct" for r in ranks)
+    _assert_mesh_equals_dense(ranks, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bfs", "pagerank"])
+def test_nccl_mesh_on_two_cards_matches_dense_engine(cuda_device, name):
+    from repro_torch.dist import run_ranks
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL needs a card per rank; this machine has one")
+    relax_rowptr.load()
+    ranks = run_ranks(_rank_mesh_run, 2, device="cuda", timeout=600, args=(name, None))
+    assert ranks.backend == "nccl" and ranks.devices == ["cuda:0", "cuda:1"]
+    assert all(r["mesh"]["transport"] == "direct" for r in ranks)
+    _assert_mesh_equals_dense(ranks, name)

@@ -112,3 +112,37 @@ def test_entry_points_refuse_a_cuda_config_without_cuda(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             entry()
         assert not list(tmp_path.iterdir()), f"{name} wrote before refusing"
+
+
+def test_mesh_and_example_packages_are_held_standalone():
+    """The multi-GPU slice's packages are among the files and modules the
+    checks above cover."""
+    names = {_module_name(p) for p in PORT_FILES if p != SMOKE}
+    for mod in (
+        "repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.dist.launch",
+        "repro_torch.dist._rank", "repro_torch.graph.mesh_exchange",
+        "repro_torch.examples", "repro_torch.examples.quickstart",
+        "repro_torch.examples.elastic_bfs", "repro_torch.examples.elastic_serving",
+    ):
+        assert mod in names, mod
+
+
+def _rank_foreign_modules() -> list:
+    """What a mesh rank process has imported of JAX or the JAX package,
+    after running the mesh engine and an example driver's rank body."""
+    from repro_torch.dist import partition_mesh
+    from repro_torch.examples import elastic_bfs  # noqa: F401
+    from repro_torch.graph import bfs_grow_partition, rmat_graph
+    from repro_torch.graph.config import EngineConfig
+    from repro_torch.graph.traversal import get_engine
+
+    pg = bfs_grow_partition(rmat_graph(6, 4, seed=0), 4, seed=0)
+    get_engine(pg, config=EngineConfig(device="cpu", mesh=partition_mesh())).run([0])
+    return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+
+
+def test_mesh_ranks_import_neither_jax_nor_repro():
+    from repro_torch.dist import run_ranks
+
+    for foreign in run_ranks(_rank_foreign_modules, 2, device="cpu", timeout=300):
+        assert foreign == []
