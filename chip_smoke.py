@@ -26,10 +26,28 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
   4. graph   -- ``rmat_graph(22, 8, seed=42)`` (about 4.2 M vertices and
                 68 M directed edges, SNAP soc-LiveJournal1's size) split by
                 ``bfs_grow_partition(..., 8, seed=1)``; host build times.
-  5. segment_sum_livj -- ``sorted_segment_sum`` over that graph's sorted
+  5. gnn     -- the GNN stack (``repro_torch.models.gnn``), every segment
+                sum on the kernel, each model's launches counted from 0:
+                PNA at its full config (4 layers, d 75, 4 aggregators x 3
+                scalers) full-batch at ogbn-products' size (N = 2,449,029,
+                E = 61,859,140 uniform edges, d_in 100, 64 classes) under
+                ``inference_mode`` on ``cuda`` and on ``torch`` (outputs
+                within 2e-4), its forward timed, profiled and its peak
+                read, and the kernel held and timed at its [E, 75] message;
+                PNA's grads at full_graph_sm's size (2,708 nodes, 10,556
+                edges, 1,433 features) against the plain version's; MACE
+                and DimeNet at their full configs on 128 molecules of 30
+                atoms and 64 edges (256 triplets each), ``cuda`` against
+                ``torch`` and invariant under two rotations; MeshGraphNet
+                (15 layers, d 128) on one minibatch_lg batch (1,024 seeds,
+                fanouts 15 and 10, 602 features) sampled from the graph of
+                phase 4; and halo PNA on 2 ranks sharing the card over
+                gloo, on a scale-16 R-MAT graph split in two, against the
+                dense forward, with one ``all_to_all`` a layer.
+  6. segment_sum_livj -- ``sorted_segment_sum`` over that graph's sorted
                 destinations (an R-MAT in-degree spread, D = 128), held and
                 timed as in phase 2.
-  6. kernel  -- the CUDA relax kernel (every template instantiation the
+  7. kernel  -- the CUDA relax kernel (every template instantiation the
                 main path runs) held against its plain PyTorch version at the
                 main path's shapes (the local and the remote layout) and at
                 the degenerate shapes (no edges, n < 8, one edge), and
@@ -40,20 +58,20 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 bound and one ``scatter_reduce`` call.  Then
                 ``relax_phases``: a diagnosis build of the kernel
                 (``RELAX_PHASE_CLOCKS``) splits a block's cycles by phase.
-  7. oracle  -- BFS, SSSP, WCC and PageRank on a small graph on the card,
+  8. oracle  -- BFS, SSSP, WCC and PageRank on a small graph on the card,
                 held against the port's numpy oracles.
-  8. slice   -- the main path: BFS from 4 sources, WCC and 20 PageRank
+  9. slice   -- the main path: BFS from 4 sources, WCC and 20 PageRank
                 iterations through ``bsp.run_program`` on the ``cuda``
                 backend, with the kernel's launch counts set to 0 just
                 before and read just after.  Then the same runs on the
                 ``torch`` backend on the same card: state bit-identical for
                 BFS and WCC, allclose for PageRank, traces exact.  BFS
                 source 0 is held against the host BFS ``_bfs_hops``.
-  9. pipeline -- the BFS trace becomes the time function A, scaled to
+  10. pipeline -- the BFS trace becomes the time function A, scaled to
                 LIVJ's T_Min of 21 s; every placement strategy is billed at
                 delta = 60 s; ``predict_time_function`` gives the
                 metagraph's a-priori plan.
-  10. elastic -- the plan executed: ``ElasticBSPExecutor`` runs BFS from
+  11. elastic -- the plan executed: ``ElasticBSPExecutor`` runs BFS from
                 vertex 0 on LIVJ/8P, 8 supersteps per window, once per
                 placement strategy, each planned from the metagraph
                 prediction (in the trace's seconds) and re-planned online
@@ -70,7 +88,7 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 ``repartition=`` variant (on a cut graph where one
                 repartition pass over LIVJ/8P would take over 30 s), which
                 must move vertices.
-  11. serve  -- ``TraversalService`` answers 32 BFS queries (8 rows a
+  12. serve  -- ``TraversalService`` answers 32 BFS queries (8 rows a
                 batch, 8 supersteps a window): first all at t = 0 on all 8
                 VMs, which gives the highest rate mu it sustains, then Poisson
                 arrivals at 0.25 mu and 0.9 mu, elastic and static; launch
@@ -79,14 +97,14 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 ``torch`` backends' reports identical and every completed
                 query's state row too, the first 2 also equal to the host
                 BFS.
-  12. profile -- one more BFS traversal under ``torch.profiler``: the
+  13. profile -- one more BFS traversal under ``torch.profiler``: the
                 card's busy share, the kernels that take its time, and the
                 relax reduction's three kernels (partition, reduction,
                 fix-up) found by name.
-  13. relax_entries -- the two min-only entries (``bfs_relax_csr``,
+  14. relax_entries -- the two min-only entries (``bfs_relax_csr``,
                 ``bfs_relax``) at S=1 over the local edges, each against the
                 ``torch`` backend, timed beside the kernel alone.
-  14. mesh   -- the multi-GPU engine (``repro_torch.dist``): LIVJ/8P on D = 8
+  15. mesh   -- the multi-GPU engine (``repro_torch.dist``): LIVJ/8P on D = 8
                 ranks (one partition each) and D = 2 (four each), processes
                 that share the one card over gloo (NCCL refuses two ranks on
                 one card), which copies the CUDA payloads through the host.
@@ -136,6 +154,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -152,12 +171,15 @@ from repro_torch.core.repartition import (  # noqa: E402
     partition_penalty,
 )
 from repro_torch.core.placement import device_of_vm  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.configs.base import GRAPH_SHAPES  # noqa: E402
 from repro_torch.dist import (  # noqa: E402
     load_shared_graph,
     partition_mesh,
     run_ranks,
     share_graph,
 )
+from repro_torch.dist.halo import build_halo_plan, scatter_nodes  # noqa: E402
 from repro_torch.graph import EdgeDeltaBuffer, bsp  # noqa: E402
 from repro_torch.graph.config import EngineConfig  # noqa: E402
 from repro_torch.graph.generators import rmat_graph, weighted  # noqa: E402
@@ -168,6 +190,7 @@ from repro_torch.graph.partition import (  # noqa: E402
     mesh_rank_layout,
     partitioned_edge_layout,
 )
+from repro_torch.graph.sampler import NeighborSampler  # noqa: E402
 from repro_torch.graph.program import (  # noqa: E402
     BfsProgram,
     PageRankProgram,
@@ -204,9 +227,20 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import variant_for  # noqa: E402
 from repro_torch.kernels.segment_sum import (  # noqa: E402
     reference_segment_sum,
+    segment_sum,
     segment_sum_sorted,
     sorted_segment_sum,
 )
+from repro_torch.models.gnn import (  # noqa: E402
+    MACE,
+    PNA,
+    DimeNet,
+    MeshGraphNet,
+    build_triplets,
+    e3,
+    sort_edges,
+)
+from repro_torch.models.gnn.halo_pna import pna_forward_halo, rank_inputs  # noqa: E402
 from repro_torch.serve import ServiceConfig, TraversalService, poisson_trace  # noqa: E402
 from repro_torch.serve.batcher import MicroBatcher  # noqa: E402
 
@@ -321,6 +355,35 @@ MAIN_VARIANTS = (
     ("int32-min", "min", torch.int32, "wcc"),
     ("float32-sum", "sum", torch.float32, "pagerank"),
 )
+#: the gnn phase: every GNN architecture at its full published config
+#: (src/repro_torch/configs/{pna,meshgraphnet,mace,dimenet}.py) on the
+#: graph shapes of configs/base.py; node-classification heads are
+#: launch/steps.py's 64 classes
+GNN_CLASSES = 64
+#: MACE and DimeNet read this many triplets a molecule (launch/steps.py)
+MOL_TRIPLETS = 256
+#: halo PNA: a scale-16 R-MAT graph split in two, on two ranks sharing the
+#: card over gloo
+HALO_SCALE, HALO_RANKS = 16, 2
+#: the ``cuda`` backend against ``torch`` (the same model, only the segment
+#: sums' order differs): PNA and MeshGraphNet outputs within GNN_ATOL of
+#: max(1, max |out|) (tests/test_halo.py's bound, scaled for MeshGraphNet's
+#: 15 residual layers); MACE and DimeNet energies within ENERGY_RTOL and
+#: rotated energies within ROT_RTOL (tests/test_archs_gnn.py's), both of
+#: the batch's largest |energy|: a molecule whose terms cancel to a small
+#: energy keeps the absolute error of the others (on the CPU, 4e-7 of the
+#: largest); halo PNA within HALO_ATOL of the dense forward on the card.
+#: PNA's grads at its full config: each parameter's within GRAD_SHARE of its
+#: largest |grad|.  Elementwise rtol 1e-3 / atol 1e-5 (the bound the
+#: reduced config meets, tests/test_torch_{gnn,cuda}.py) does not hold here
+#: between two float32 summation orders: std's sqrt(mean_sq - mean^2)
+#: cancels on low-degree nodes.  The line's ``plain_order_spread_share`` is
+#: how far the plain version moves with the edges in another order; the
+#: runs use deterministic algorithms, so the check reads the same each run
+#: (the atomic order of ``index_add_`` moved it 10x between runs); the
+#: gradient of the entry itself is held exactly (``grad == up[ids]``)
+GNN_ATOL, ENERGY_RTOL, ROT_RTOL, HALO_ATOL, GRAD_SHARE = 2e-4, 1e-5, 2e-5, 2e-4, 5e-3
+ROTATIONS = ((0.7, (1.0, 2.0, 3.0)), (2.1, (0.0, 1.0, 0.0)))
 #: the instantiation the elastic path (BFS, S=1) and the serving path (SSSP
 #: on unit weights, S = SERVE_BATCH) launch; ``phase_kernels`` also holds it
 #: at those two shapes over both layouts
@@ -893,6 +956,391 @@ def build_graph(scale: int, parts: int) -> tuple[object, dict]:
         "layout_s": t3 - t2,
     }
     return pg, info
+
+
+# -- the GNN stack --------------------------------------------------------------
+
+
+def _gen(device, seed: int) -> torch.Generator:
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+def _init_gen(seed: int) -> torch.Generator:
+    """The models draw their parameters on the CPU from this generator."""
+    return torch.Generator().manual_seed(seed)
+
+
+def _counted(fn):
+    """``fn()`` with the segment-sum launch count at 0 just before and read
+    just after; returns (result, launches)."""
+    torch.cuda.synchronize()
+    segment_sum_sorted.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, segment_sum_sorted.launches
+
+
+def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max(1, max |b|)."""
+    return _max_abs_err(a, b) / max(1.0, float(b.abs().max()))
+
+
+def _gnn_pna_full(device, seed: int, scale: int) -> tuple[dict, dict]:
+    """PNA at its full config, full-batch over ogbn-products' size: the
+    forward on ``cuda`` (counted, timed, its peak), then on ``torch``, and
+    the kernel held and timed at the forward's ``[E, 75]`` message."""
+    cfg = ARCHS["pna"].config
+    shape = GRAPH_SHAPES["ogb_products"]
+    _check((shape.n_nodes, shape.n_edges) == (OGBN_PRODUCTS_N, OGBN_PRODUCTS_E),
+           "ogb_products in configs/base.py is not ogbn-products' published size")
+    n, e = OGBN_PRODUCTS_N >> _cut(scale), OGBN_PRODUCTS_E >> _cut(scale)
+    t0 = time.perf_counter()
+    gen = _gen(device, seed + 10)
+    src = torch.randint(0, n, (e,), generator=gen, device=device, dtype=torch.int32)
+    dst = torch.randint(0, n, (e,), generator=gen, device=device, dtype=torch.int32)
+    x = torch.randn((n, shape.d_feat), generator=gen, device=device)
+    model = PNA(cfg, shape.d_feat, GNN_CLASSES, generator=_init_gen(seed), device=device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    edges = sort_edges(src, dst, n)
+    del src, dst
+    torch.cuda.synchronize()
+    sort_s = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        out, launches = _counted(lambda: model(x, edges, backend="cuda"))
+        peak = torch.cuda.max_memory_allocated()
+        _check(launches > 0, "PNA launched the segment-sum kernel no time")
+        _check(out.shape == (n, GNN_CLASSES) and bool(torch.isfinite(out).all()),
+               "PNA's output is not finite [N, 64]")
+        ms = _median_ms(lambda: model(x, edges, backend="cuda"), 3)
+        plain = model(x, edges, backend="torch")
+        err = _rel_err(out, plain)
+        _check(err <= GNN_ATOL, f"PNA on cuda differs from torch by {err} (> {GNN_ATOL})")
+        del plain
+        plain_ms = _median_ms(lambda: model(x, edges, backend="torch"), 3)
+        profile = _gnn_profile(lambda: model(x, edges, backend="cuda"))
+        # the kernel at the forward's own call: layer 0's messages
+        m = model.layers[0].msg(model.encode(x)).index_select(0, edges.src)
+        del out
+        torch.cuda.empty_cache()
+        k_out = sorted_segment_sum(edges.dst, m, n, assume_sorted=True)
+        case = _seg_case("pna_message", k_out, edges.dst, m, n)
+    del m, k_out, x, edges, model
+    torch.cuda.empty_cache()
+    line = {
+        "config": {"layers": cfg.n_layers, "d_hidden": cfg.d_hidden,
+                   "aggregators": list(cfg.extra["aggregators"]),
+                   "scalers": list(cfg.extra["scalers"])},
+        "N": n, "E": e, "d_in": shape.d_feat, "d_out": GNN_CLASSES, "cut": _cut(scale) > 0,
+        "launches": launches, "forward_ms": ms, "forward_ms_torch": plain_ms,
+        "peak_device_bytes": peak, "max_err_vs_torch": err, "atol": GNN_ATOL,
+        "setup_s": t1 - t0, "sort_edges_s": sort_s, "profile": profile,
+    }
+    return line, case
+
+
+def _gnn_profile(fn) -> dict:
+    """One forward under ``torch.profiler``: the card's busy share of its
+    wall time (a lower bound: the profiler lengthens the wall), the
+    segment-sum kernel's share of the busy time and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(prof)
+    busy_ms = sum(r[1] for r in rows)
+    kernel_ms = sum(r[1] for r in rows if "segment_sum_level_kernel" in r[0])
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms if wall_ms else None,
+            "segment_sum_kernel_ms": kernel_ms,
+            "top": [{"name": k[:90], "ms": ms, "count": c} for k, ms, c in rows[:10]]}
+
+
+def _gnn_pna_grads(device, seed: int) -> dict:
+    """PNA's full config at full_graph_sm's size: the grads of
+    tests/test_archs_gnn.py's loss through the autograd entry (kernel
+    forward, gather backward) against the plain version's (see GRAD_SHARE),
+    and the entry's own gradient at the model's message shape, exactly."""
+    cfg = ARCHS["pna"].config
+    shape = GRAPH_SHAPES["full_graph_sm"]
+    n, e = shape.n_nodes, shape.n_edges
+    gen = _gen(device, seed + 11)
+    src = torch.randint(0, n, (e,), generator=gen, device=device)
+    dst = torch.randint(0, n, (e,), generator=gen, device=device)
+    x = torch.randn((n, shape.d_feat), generator=gen, device=device)
+    labels = torch.randint(0, GNN_CLASSES, (n,), generator=gen, device=device)
+    perm = torch.randperm(e, generator=gen, device=device)
+    grads, launches = {}, {}
+    # deterministic scatters (index_add_ and the gathers' backward), so the
+    # comparison reads the same in every run; ops without a deterministic
+    # version are listed, not refused
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for run, backend, order in (("cuda", "cuda", None), ("torch", "torch", None),
+                                        ("torch_reordered", "torch", perm)):
+                model = PNA(cfg, shape.d_feat, GNN_CLASSES, generator=_init_gen(seed),
+                            device=device)
+                s_e, d_e = (src, dst) if order is None else (src[order], dst[order])
+
+                def step():
+                    lg = model(x, s_e, d_e, backend=backend)
+                    loss = -torch.log_softmax(lg, -1)[torch.arange(n, device=device),
+                                                      labels].mean()
+                    loss.backward()
+                    return loss.item()
+
+                _, launches[run] = _counted(step)
+                grads[run] = {k: p.grad for k, p in model.named_parameters()}
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    nondeterministic = sorted({str(w.message).split(" does not have")[0][:80] for w in caught
+                               if "deterministic" in str(w.message)})
+    _check(launches["cuda"] > 0, "PNA's grad step launched the segment-sum kernel no time")
+    worst, spread, outside = 0.0, 0.0, 0
+    for k, g_plain in grads["torch"].items():
+        g = grads["cuda"][k]
+        _check(bool(torch.isfinite(g).all()), f"PNA grad {k} is not finite")
+        scale = float(g_plain.abs().max())
+        share = _max_abs_err(g, g_plain) / scale
+        _check(share <= GRAD_SHARE, f"PNA grad {k} on cuda differs from torch by {share} of "
+                                    f"its largest |grad| (> {GRAD_SHARE})")
+        worst = max(worst, share)
+        spread = max(spread, _max_abs_err(grads["torch_reordered"][k], g_plain) / scale)
+        outside += int((~torch.isclose(g, g_plain, rtol=1e-3, atol=1e-5)).sum())
+    # the entry's backward at the message shape: the gather, bit for bit
+    edges = sort_edges(src, dst, n)
+    m = torch.randn((e, cfg.d_hidden), generator=gen, device=device, requires_grad=True)
+    up = torch.randn((n, cfg.d_hidden), generator=gen, device=device)
+    (segment_sum(edges.dst, m, n, sorted_ids=True, backend="cuda") * up).sum().backward()
+    _check(torch.equal(m.grad, up[edges.dst]), "the segment-sum entry's gradient is not up[ids]")
+    return {"N": n, "E": e, "d_in": shape.d_feat, "launches": launches["cuda"],
+            "params": len(grads["cuda"]), "max_err_share_vs_torch": worst,
+            "grad_share": GRAD_SHARE, "plain_order_spread_share": spread,
+            "nondeterministic_ops": nondeterministic,
+            "elements_outside_rtol_1e-3_atol_1e-5": outside,
+            "elements": sum(g.numel() for g in grads["cuda"].values()),
+            "entry_gradient_exact": True}
+
+
+def _molecules(seed: int, device):
+    """The ``molecule`` batch: 128 molecules of 30 atoms and 64 directed
+    edges each, positions within MACE's and DimeNet's cutoff, and 256
+    padded triplets a molecule."""
+    shape = GRAPH_SHAPES["molecule"]
+    g, a, m = shape.batch_graphs, shape.n_nodes, shape.n_edges
+    rng = np.random.default_rng(seed + 12)
+    pos = (rng.standard_normal((g * a, 3)) * 1.5).astype(np.float32)
+    species = rng.integers(0, ARCHS["mace"].config.extra["n_species"], g * a).astype(np.int32)
+    pairs = np.array([(i, j) for i in range(a) for j in range(a) if i != j])
+    src, dst, kj, ji, tmask = [], [], [], [], []
+    for k in range(g):
+        pick = pairs[rng.choice(len(pairs), m, replace=False)]
+        s, d = pick[:, 0].astype(np.int32), pick[:, 1].astype(np.int32)
+        t_kj, t_ji, t_mask = build_triplets(s, d, MOL_TRIPLETS)
+        src.append(s + k * a)
+        dst.append(d + k * a)
+        kj.append(t_kj + k * m)
+        ji.append(t_ji + k * m)
+        tmask.append(t_mask)
+
+    def t(v):
+        return torch.as_tensor(np.concatenate(v) if isinstance(v, list) else v, device=device)
+
+    return {"pos": pos, "species": t(species), "src": t(src), "dst": t(dst),
+            "kj": t(kj), "ji": t(ji), "trip_mask": t(tmask),
+            "graph_id": t(np.repeat(np.arange(g, dtype=np.int32), a)), "n_graphs": g,
+            "N": g * a, "E": g * m, "T": g * MOL_TRIPLETS,
+            "real_triplets": int(np.concatenate(tmask).sum())}
+
+
+def _gnn_molecules(device, seed: int) -> dict:
+    """MACE and DimeNet at their full configs on the molecule batch: the
+    ``cuda`` backend against ``torch``, and the energies under two
+    rotations on the card."""
+    mol = _molecules(seed, device)
+    mace = MACE(ARCHS["mace"].config, generator=_init_gen(seed), device=device)
+    dimenet = DimeNet(ARCHS["dimenet"].config, generator=_init_gen(seed), device=device)
+    runs = {
+        "mace": lambda pos, backend: mace(
+            mol["species"], pos, mol["src"], mol["dst"], graph_id=mol["graph_id"],
+            n_graphs=mol["n_graphs"], backend=backend),
+        "dimenet": lambda pos, backend: dimenet(
+            mol["species"], pos, mol["src"], mol["dst"], mol["kj"], mol["ji"],
+            trip_mask=mol["trip_mask"], graph_id=mol["graph_id"], n_graphs=mol["n_graphs"],
+            backend=backend)[:, 0],
+    }
+    pos = torch.as_tensor(mol["pos"], device=device)
+    out = {"N": mol["N"], "E": mol["E"], "T": mol["T"], "graphs": mol["n_graphs"],
+           "real_triplets": mol["real_triplets"]}
+    with torch.inference_mode():
+        for name, run in runs.items():
+            energy, launches = _counted(lambda: run(pos, "cuda"))
+            _check(launches > 0, f"{name} launched the segment-sum kernel no time")
+            _check(energy.shape == (mol["n_graphs"],) and bool(torch.isfinite(energy).all()),
+                   f"{name}'s energies are not finite [{mol['n_graphs']}]")
+            scale = float(energy.abs().max())
+            rel = _max_abs_err(energy, run(pos, "torch")) / scale
+            _check(rel <= ENERGY_RTOL, f"{name} on cuda differs from torch ({rel})")
+            rot = []
+            for angle, axis in ROTATIONS:
+                r = torch.as_tensor(e3.rotation_matrix(np.array(axis), angle),
+                                    dtype=torch.float32, device=device)
+                turned = run(pos @ r.T + (5.0 if name == "mace" else 0.0), "cuda")
+                rot.append(_max_abs_err(turned, energy) / scale)
+                _check(rot[-1] <= ROT_RTOL, f"{name} is not invariant under rotation ({rot[-1]})")
+            out[name] = {"launches": launches, "max_err_vs_torch": rel,
+                         "rotation_max_err": rot, "energy_abs_max": scale,
+                         "ms": _median_ms(lambda: run(pos, "cuda"), 3),
+                         "ms_torch": _median_ms(lambda: run(pos, "torch"), 3)}
+    out["mace"]["kernel_call"] = [mol["E"], 9 * ARCHS["mace"].config.d_hidden]
+    out["rtol"], out["rotation_rtol"] = ENERGY_RTOL, ROT_RTOL
+    return out
+
+
+def _gnn_meshgraphnet(pg, device, seed: int) -> dict:
+    """MeshGraphNet at its full config on one minibatch_lg batch sampled
+    from the LIVJ graph: one edge list over the batch's node slots."""
+    cfg = ARCHS["meshgraphnet"].config
+    shape = GRAPH_SHAPES["minibatch_lg"]
+    t0 = time.perf_counter()
+    g = pg.graph
+    seeds = np.random.default_rng(seed + 13).choice(g.n_vertices, shape.batch_nodes,
+                                                    replace=False)
+    batch = NeighborSampler(g, shape.fanout, seed=seed).sample(seeds)
+    slots = [batch.blocks[-1].dst_nodes] + [blk.src_nodes for blk in reversed(batch.blocks)]
+    starts = np.cumsum([0] + [s.size for s in slots])
+    blocks = list(reversed(batch.blocks))  # seed side first
+    src = np.concatenate([b.edge_src + starts[h + 1] for h, b in enumerate(blocks)])
+    dst = np.concatenate([b.edge_dst + starts[h] for h, b in enumerate(blocks)])
+    mask = np.concatenate([b.edge_mask for b in blocks])
+    nodes = np.concatenate(slots)
+    sample_s = time.perf_counter() - t0
+    # one feature row per distinct node, read by every slot that holds it
+    uniq, inv = np.unique(nodes, return_inverse=True)
+    gen = _gen(device, seed + 14)
+    feats = torch.randn((uniq.size, shape.d_feat), generator=gen, device=device)
+    x = feats[torch.as_tensor(inv, device=device)]
+    e_feat = torch.randn((src.size, cfg.extra["d_edge_feat"]), generator=gen, device=device)
+    src_t, dst_t = torch.as_tensor(src, device=device), torch.as_tensor(dst, device=device)
+    mask_t = torch.as_tensor(mask, device=device)
+    model = MeshGraphNet(cfg, shape.d_feat, cfg.extra["d_edge_feat"], GNN_CLASSES,
+                         generator=_init_gen(seed), device=device)
+
+    def run(backend):
+        return model(x, e_feat, src_t, dst_t, edge_mask=mask_t, backend=backend)
+
+    with torch.inference_mode():
+        out, launches = _counted(lambda: run("cuda"))
+        _check(launches > 0, "MeshGraphNet launched the segment-sum kernel no time")
+        _check(out.shape == (nodes.size, GNN_CLASSES) and bool(torch.isfinite(out).all()),
+               "MeshGraphNet's output is not finite")
+        err = _rel_err(out, run("torch"))
+        _check(err <= GNN_ATOL, f"MeshGraphNet on cuda differs from torch by {err}")
+        ms, plain_ms = _median_ms(lambda: run("cuda"), 3), _median_ms(lambda: run("torch"), 3)
+    return {"config": {"layers": cfg.n_layers, "d_hidden": cfg.d_hidden},
+            "seeds": shape.batch_nodes, "fanouts": list(shape.fanout),
+            "node_slots": int(nodes.size), "E": int(src.size), "masked_edges": int((~mask).sum()),
+            "distinct_nodes": int(uniq.size), "d_in": shape.d_feat, "launches": launches,
+            "max_err_vs_torch": err, "atol": GNN_ATOL, "forward_ms": ms,
+            "forward_ms_torch": plain_ms, "sample_s": sample_s}
+
+
+def _halo_rank(plan, xs, d_in: int, seed: int) -> dict:
+    """One rank of the halo PNA run: its block of the plan through
+    ``pna_forward_halo``, the segment-sum launches and the collectives."""
+    mesh = partition_mesh()
+    if mesh.device.type == "cuda":
+        segment_sum_sorted.load()  # the parent built it: same source and flags
+    else:  # a rehearsal on the CPU: no card to wait for
+        torch.cuda.synchronize = lambda *a, **k: None
+    backend = "cuda" if mesh.device.type == "cuda" else "torch"
+    model = PNA(ARCHS["pna"].config, d_in, GNN_CLASSES, generator=_init_gen(seed),
+                device=mesh.device)
+    inputs = rank_inputs(plan, xs, mesh.rank, mesh.device)
+    with torch.inference_mode():
+        out, launches = _counted(
+            lambda: pna_forward_halo(model, mesh, **inputs, backend=backend))
+    stats = mesh.stats.snapshot()
+    return {"rank": mesh.rank, "out": out.cpu().numpy(), "launches": launches,
+            "calls": stats["calls"], "bytes": stats["bytes"],
+            "collective_s": stats["seconds"], "backend": backend}
+
+
+def _gnn_halo(device, seed: int) -> dict:
+    """Halo PNA at PNA's full width on HALO_RANKS ranks sharing the card,
+    over a scale-16 R-MAT graph split by the BFS-grow partitioner, against
+    the dense forward on the card."""
+    cfg = ARCHS["pna"].config
+    d_in = GRAPH_SHAPES["ogb_products"].d_feat
+    t0 = time.perf_counter()
+    hpg = bfs_grow_partition(rmat_graph(HALO_SCALE, 8, seed=42), HALO_RANKS, seed=1)
+    plan = build_halo_plan(hpg)
+    plan_s = time.perf_counter() - t0
+    g = hpg.graph
+    x = np.random.default_rng(seed + 15).standard_normal((g.n_vertices, d_in)).astype(np.float32)
+    t0 = time.perf_counter()
+    ranks = run_ranks(_halo_rank, HALO_RANKS, device=device.type,
+                      timeout=MESH_LAUNCH_TIMEOUT_S, args=(plan, scatter_nodes(plan, x), d_in,
+                                                           seed))
+    launch_s = time.perf_counter() - t0
+    flat = np.concatenate([r["out"] for r in ranks]).reshape(HALO_RANKS * plan.n_local, -1)
+    model = PNA(cfg, d_in, GNN_CLASSES, generator=_init_gen(seed), device=device)
+    with torch.inference_mode():
+        dense = model(torch.as_tensor(x, device=device), torch.as_tensor(g.src, device=device),
+                      torch.as_tensor(g.dst, device=device)).cpu().numpy()
+    err = float(np.abs(flat[plan.perm] - dense).max())
+    _check(err <= HALO_ATOL, f"halo PNA differs from the dense forward by {err}")
+    per_layer = HALO_RANKS * plan.s_max * cfg.d_hidden * 4
+    for r in ranks:
+        _check(r["calls"] == {"all_to_all": cfg.n_layers},
+               f"halo rank {r['rank']}: collectives {r['calls']}, not one all_to_all a layer")
+        _check(r["bytes"]["all_to_all"] == cfg.n_layers * per_layer,
+               f"halo rank {r['rank']}: {r['bytes']} all_to_all bytes")
+        _check(device.type != "cuda" or r["launches"] > 0,
+               f"halo rank {r['rank']} launched the segment-sum kernel no time")
+    return {"graph": {"scale": HALO_SCALE, "n_vertices": g.n_vertices, "n_edges": g.n_edges,
+                      "edge_cut": hpg.edge_cut_fraction},
+            "ranks": HALO_RANKS, "backend": ranks.backend, "n_local": plan.n_local,
+            "s_max": plan.s_max, "max_abs_err_vs_dense": err, "atol": HALO_ATOL,
+            "all_to_all_per_rank": cfg.n_layers,
+            "all_to_all_bytes_per_layer": HALO_RANKS * per_layer,
+            "all_to_all_bytes_per_layer_expected": "P^2 * s_max * d * 4",
+            "launches": sum(r["launches"] for r in ranks),
+            "collective_s": max(r["collective_s"] for r in ranks),
+            "plan_s": plan_s, "launch_s": launch_s}
+
+
+def phase_gnn(pg, device, seed: int, scale: int) -> tuple[dict, dict]:
+    """The GNN stack on the card (see the module docstring); returns the
+    ``gnn`` line and the segment-sum case at PNA's message shape."""
+    t0 = time.perf_counter()
+    line: dict = {}
+    line["pna"], case = _gnn_pna_full(device, seed, scale)
+    line["pna_grad"] = _gnn_pna_grads(device, seed)
+    line["molecule"] = _gnn_molecules(device, seed)
+    line["meshgraphnet"] = _gnn_meshgraphnet(pg, device, seed)
+    line["halo_pna"] = _gnn_halo(device, seed)
+    launches = {"pna": line["pna"]["launches"], "pna_grad": line["pna_grad"]["launches"],
+                "mace": line["molecule"]["mace"]["launches"],
+                "dimenet": line["molecule"]["dimenet"]["launches"],
+                "meshgraphnet": line["meshgraphnet"]["launches"],
+                "halo_pna": line["halo_pna"]["launches"]}
+    line.update(launches_by_model=launches, launches=sum(launches.values()),
+                peak_device_bytes=line["pna"]["peak_device_bytes"],
+                nvidia_smi=_nvidia_smi(), phase_s=time.perf_counter() - t0)
+    return line, case
 
 
 def _random_case(gen, s, n, e, dtype, reduce, device, row_ptr=None, dst=None):
@@ -1547,26 +1995,33 @@ def phase_serve(pg, trace, device, seed: int) -> dict:
     }
 
 
+def _device_rows(prof) -> list:
+    """A profile's device activity (kernels, copies) by name: ``(name, ms,
+    count)``, the most device time first."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            slot = by_name.setdefault(ev.name, [0.0, 0])
+            slot[0] += ev.time_range.elapsed_us() / 1e3
+            slot[1] += 1
+    return sorted(((k, ms, c) for k, (ms, c) in by_name.items()), key=lambda r: -r[1])
+
+
 def phase_profile(pg, device, seed: int) -> dict:
     """One warm BFS traversal under ``torch.profiler``: the card's busy
     share of the traversal's wall time, the relax kernel's share of the
     busy time, and the kernels that take the most device time.  The
     profiler's own overhead lengthens the wall time, so the busy share is
     a lower bound."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     _, prog, sources = _main_path_programs(pg, seed)[0]
     cfg = EngineConfig(device=str(device), backend="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, _, secs = _run(pg, prog, sources, cfg)
-    by_name = {}  # device activity (kernels, copies) -> [ms, count]
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            slot = by_name.setdefault(ev.name, [0.0, 0])
-            slot[0] += ev.time_range.elapsed_us() / 1e3
-            slot[1] += 1
-    rows = [(k, ms, c) for k, (ms, c) in by_name.items()]
+    rows = _device_rows(prof)
     busy_ms = sum(r[1] for r in rows)
     # the relax reduction is three kernels: partition, reduction, fix-up
     relax_parts = {
@@ -1575,7 +2030,6 @@ def phase_profile(pg, device, seed: int) -> dict:
     relax_ms = sum(relax_parts.values())
     _check(relax_parts["relax_rowptr_kernel"] > 0,
            "the profile found no relax_rowptr_kernel in the BFS traversal")
-    rows.sort(key=lambda r: -r[1])
     return {
         "program": prog.name, "S": len(sources), "wall_ms": secs * 1e3,
         "device_busy_ms": busy_ms, "busy_share": busy_ms / (secs * 1e3),
@@ -2113,16 +2567,20 @@ def phase_mesh(pg, runs: dict, bfs_trace, pred_tf, device, seed: int) -> dict:
 
 
 def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
-                 seg_livj: dict, path_launches: dict, mesh_planes: list) -> dict:
+                 seg_livj: dict, path_launches: dict, mesh_planes: list, gnn: dict,
+                 gnn_case: dict) -> dict:
     """One entry per kernel the main path launched, with its numbers at the
     main path's own shape: the relax kernel's local closure reduction, the
     segment sum over uniform ids, the flash kernel at the Mixtral 32k
     window (the other cases of each are under ``cases``; the segment sum's
-    LIVJ case has its own ``launches`` there).  The relax entries also
+    LIVJ case has its own ``launches`` there, and its case at PNA's
+    message is the gnn path's).  The relax entries also
     count their launches on the elastic, serving and mesh paths
     (``launches_by_path``, each read around its own path; the mesh path's
     summed over its ranks), and the float32-min entry its times at one
-    mesh rank's planes (``mesh_planes``)."""
+    mesh rank's planes (``mesh_planes``); the segment-sum entry its
+    launches on its own path and the gnn path (every model's run, the halo
+    ranks' summed)."""
     entries = []
     for variant, _, _, prog in MAIN_VARIANTS:
         cases = checks[variant]
@@ -2160,13 +2618,15 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
          flash["variant_launches"]["bfloat16-wgmma"]),
     ):
         main = phase["cases"][0]
-        more = phase["cases"][1:] + (seg_livj["cases"] if phase is seg else [])
+        more = phase["cases"][1:] + (seg_livj["cases"] + [gnn_case] if phase is seg else [])
         entries.append({
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
             "launches": launches,
+            **({"launches_by_path": {"segment_sum": launches, "gnn": gnn["launches"]}}
+               if phase is seg else {}),
             "max_abs_err": max(c["max_abs_err"] for c in [main, *more, *phase["small"]]),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],
@@ -2208,6 +2668,8 @@ def main(argv=None) -> int:
     _emit("flash_attention", report["flash_attention"])
     pg, report["graph"] = build_graph(args.scale, LIVJ_PARTS)
     _emit("graph", report["graph"])
+    report["gnn"], gnn_case = phase_gnn(pg, device, args.seed, args.scale)
+    _emit("gnn", report["gnn"])
     report["segment_sum_livj"] = phase_segment_sum_livj(pg, device, args.seed)
     _emit("segment_sum_livj", report["segment_sum_livj"])
     checks = phase_kernels(pg, args.seed, device)
@@ -2237,7 +2699,7 @@ def main(argv=None) -> int:
         checks, report["slice"]["variant_launches"], report["segment_sum"],
         report["flash_attention"], report["segment_sum_livj"],
         {path: report[path]["variant_launches"] for path in ("elastic", "serve", "mesh")},
-        report["mesh"]["kernel_planes"],
+        report["mesh"]["kernel_planes"], report["gnn"], gnn_case,
     )["kernels"]
     report["wall_s"] = time.perf_counter() - t_start
     report["phase_seconds"] = dict(PHASE_SECONDS)

@@ -1,10 +1,12 @@
-"""Carry the system's "weights" across from numpy: the graph, its partition
-and the carried traversal state.
+"""Carry the system's "weights" across from numpy: the graph, its partition,
+the carried traversal state and the GNN models' parameters.
 
 Everything here takes plain numpy arrays (never an object of the JAX
 package), so a graph built anywhere -- by ``repro``, by a loader, by a test
--- becomes the port's ``PartitionedGraph`` with the same bytes, and a window
-state pulled to the host resumes on the port's engine.
+-- becomes the port's ``PartitionedGraph`` with the same bytes, a window
+state pulled to the host resumes on the port's engine, and a GNN parameter
+tree (nested dicts and lists of arrays, as ``init_pna`` and its siblings
+build it) becomes the port's module with the same values.
 """
 
 from __future__ import annotations
@@ -56,3 +58,66 @@ def window_state_from_numpy(
         torch.as_tensor(frontier, device=device),
         torch.as_tensor(nst, device=device),
     )
+
+
+def _gnn_module(kind: str, tree: dict, cfg, device):
+    """The port's module for ``kind``, its widths read off ``tree``."""
+    from repro_torch.models.gnn import MACE, PNA, DimeNet, MeshGraphNet
+
+    def d_in(mlp):
+        return int(np.shape(mlp["w"][0])[0])
+
+    def d_out(mlp):
+        return int(np.shape(mlp["w"][-1])[1])
+
+    if kind == "pna":
+        return PNA(cfg, d_in(tree["encode"]), d_out(tree["decode"]), device=device)
+    if kind == "meshgraphnet":
+        return MeshGraphNet(cfg, d_in(tree["node_enc"]), d_in(tree["edge_enc"]),
+                            d_out(tree["decode"]), device=device)
+    if kind == "mace":
+        return MACE(cfg, device=device)
+    if kind == "dimenet":
+        return DimeNet(cfg, d_out(tree["out_final"]), device=device)
+    raise ValueError(f"unknown GNN kind {kind!r}")
+
+
+def _load_tree(module: torch.nn.Module, tree) -> None:
+    """Copy ``tree`` (dicts by attribute name, lists by position) into
+    ``module``'s parameters, shape by shape."""
+    params = dict(module.named_parameters())
+    seen = set()
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}{k}.")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{i}.")
+        else:
+            name = prefix[:-1]
+            if name not in params:
+                raise KeyError(f"{name}: no such parameter in {type(module).__name__}")
+            arr = np.array(node)  # a writable copy: torch shares the buffer
+            p = params[name]
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: tree {arr.shape} against module {tuple(p.shape)}")
+            with torch.no_grad():
+                p.copy_(torch.as_tensor(arr, dtype=p.dtype))
+            seen.add(name)
+
+    walk(tree, "")
+    missing = sorted(set(params) - seen)
+    if missing:
+        raise KeyError(f"the tree holds no value for {missing}")
+
+
+def gnn_params_from_numpy(kind: str, tree: dict, cfg, *, device="cuda") -> torch.nn.Module:
+    """The port's ``kind`` module (``"pna"``, ``"meshgraphnet"``, ``"mace"``,
+    ``"dimenet"``) built for ``cfg`` on ``device``, holding the parameter
+    ``tree``'s values (e.g. ``jax.tree.map(np.asarray, init_pna(...))``); its
+    input and output widths are read off the tree."""
+    module = _gnn_module(kind, tree, cfg, device)
+    _load_tree(module, tree)
+    return module

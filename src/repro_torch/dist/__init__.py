@@ -13,12 +13,16 @@ The JAX package drives every mesh device from one controller with
               late rank fails the run.  ``share_graph`` / ``load_shared_graph``
               hand a graph and its edge layout to the ranks through
               memory-mapped files, so a large layout is built once.
+  halo     -- boundary-exchange plans for partitioned graphs (a static
+              send-index table per shard pair) and ``halo_gather``, one
+              ``all_to_all`` of the planned edge cut a GNN layer.
 
 The model-axis sharding rules of ``repro.dist.sharding`` (LM, GNN, recsys
-parameters) come with the off-path workloads.
+parameters) and ``repro.dist.compression`` come with the training slice.
 """
 
 from repro_torch.dist.sharding import CollectiveStats, PartitionMesh, partition_mesh
+from repro_torch.dist import halo
 from repro_torch.dist.launch import (
     RankFailed,
     RankResults,
@@ -29,6 +33,7 @@ from repro_torch.dist.launch import (
 )
 
 __all__ = [
+    "halo",
     "CollectiveStats",
     "PartitionMesh",
     "partition_mesh",

@@ -1,0 +1,71 @@
+"""Shared model components: norms, RoPE, initializers, MLP blocks
+(``repro.models.common`` counterpart).
+
+Weights keep the reference's ``[d_in, d_out]`` layout (``x @ w``).  The
+initializer draws from an explicit ``torch.Generator``: the values differ
+from the JAX package's ``jax.random`` draws, so parameters are carried
+across by ``repro_torch.convert`` where two runs must agree.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    # the variance accumulates in float32, as the reference's
+    # preferred_element_type asks
+    xf = x.to(torch.float32)
+    ss = torch.einsum("...d,...d->...", xf, xf)
+    var = ss[..., None] / x.shape[-1]
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * scale
+
+
+def init_dense(
+    generator: torch.Generator | None, d_in: int, d_out: int, dtype=torch.bfloat16
+) -> torch.Tensor:
+    """``[d_in, d_out]`` normal weights scaled by ``1/sqrt(d_in)``, drawn in
+    float32 on the CPU from ``generator`` and cast to ``dtype``."""
+    scale = 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def rope_angles(positions: torch.Tensor, d_head: int, theta: float = 10000.0):
+    """positions [*, S] -> (cos, sin) each [*, S, d_head/2] (float32)."""
+    half = d_head // 2
+    freq = 1.0 / (
+        theta ** (torch.arange(half, dtype=torch.float32, device=positions.device) / half)
+    )
+    ang = positions.to(torch.float32)[..., None] * freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [..., S, H, D]; cos/sin [..., S, 1, D/2] or broadcastable."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(dt)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor):
+    g = torch.einsum("...d,df->...f", x, w_gate)
+    u = torch.einsum("...d,df->...f", x, w_up)
+    return torch.einsum("...f,fd->...d", F.silu(g) * u, w_down)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *, z_loss: float = 0.0):
+    """Mean next-token CE in float32; logits [..., V], labels [...] int."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    loss = torch.mean(lse - ll)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(lse**2)
+    return loss

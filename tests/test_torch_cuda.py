@@ -1,6 +1,8 @@
 """The CUDA kernels on the card, against their plain versions: relax,
-segment sum and flash attention; and the elastic executor and the serving
-loop on the card, whose reports must equal the ``torch`` backend's.
+segment sum and flash attention; the elastic executor and the serving
+loop on the card, whose reports must equal the ``torch`` backend's; and
+the GNN models, whose every segment sum runs on the kernel, against the
+``torch`` backend (halo PNA against the dense forward).
 
 Every test here needs an NVIDIA card with ``nvcc`` and skips with a reason
 elsewhere.  The file imports neither JAX nor the JAX package, so it runs on
@@ -20,7 +22,10 @@ Executor and service: BFS state bit-identical, reports equal field by field
 (except wall seconds), as on the CPU against the JAX package.  Mesh: two
 ranks (``repro_torch.dist.run_ranks``) share the card over gloo, or run on
 two cards over NCCL where two are visible; state and every counter equal
-the dense engine's on the card (PageRank state to rtol 1e-5).
+the dense engine's on the card (PageRank state to rtol 1e-5).  GNN models
+(reduced configs): node outputs within 2e-4 and energies within 1e-5 of
+their largest magnitude, PNA grads at rtol 1e-3 / atol 1e-5, halo PNA on
+two ranks within 2e-4 of the dense forward.
 """
 
 import dataclasses
@@ -532,3 +537,132 @@ def test_nccl_mesh_on_two_cards_matches_dense_engine(cuda_device, name):
     assert ranks.backend == "nccl" and ranks.devices == ["cuda:0", "cuda:1"]
     assert all(r["mesh"]["transport"] == "direct" for r in ranks)
     _assert_mesh_equals_dense(ranks, name)
+
+
+# -- the GNN stack on the card ---------------------------------------------------
+
+
+def _gnn_graph(device, n=300, e=2400, seed=5):
+    rng = np.random.default_rng(seed)
+    src = torch.as_tensor(rng.integers(0, n, e), device=device)
+    dst = torch.as_tensor(rng.integers(0, n - 10, e), device=device)  # 10 isolated
+    mask = torch.as_tensor(rng.random(e) < 0.8, device=device)
+    return n, src, dst, mask
+
+
+def _gnn_runs(name, device):
+    """``run(backend)`` for one reduced-config model on the card, at
+    seeded inputs, and the bound its cuda and torch outputs must meet."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.gnn import MACE, PNA, DimeNet, MeshGraphNet, build_triplets
+
+    cfg = reduced_config(ARCHS[name])
+    gen = torch.Generator().manual_seed(3)
+    n, src, dst, mask = _gnn_graph(device)
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.standard_normal((n, 12)).astype(np.float32), device=device)
+    pos = torch.as_tensor(rng.standard_normal((n, 3)).astype(np.float32), device=device)
+    species = torch.as_tensor(rng.integers(0, 10, n), device=device)
+    gid = torch.as_tensor(np.repeat(np.arange(3), n // 3), device=device)
+    if name == "pna":
+        model = PNA(cfg, 12, 5, generator=gen, device=device)
+        return lambda b: model(x, src, dst, edge_mask=mask, backend=b), 2e-4
+    if name == "meshgraphnet":
+        model = MeshGraphNet(cfg, 12, 4, 3, generator=gen, device=device)
+        ef = torch.as_tensor(rng.standard_normal((src.shape[0], 4)).astype(np.float32),
+                             device=device)
+        return lambda b: model(x, ef, src, dst, edge_mask=mask, backend=b), 2e-4
+    if name == "mace":
+        model = MACE(cfg, generator=gen, device=device)
+        return lambda b: model(species, pos, src, dst, graph_id=gid, n_graphs=3,
+                               backend=b), 1e-5
+    kj, ji, tmask = build_triplets(src.cpu().numpy(), dst.cpu().numpy(), 6000)
+    model = DimeNet(cfg, generator=gen, device=device)
+    kj, ji, tmask = (torch.as_tensor(a, device=device) for a in (kj, ji, tmask))
+    return lambda b: model(species, pos, src, dst, kj, ji, trip_mask=tmask, graph_id=gid,
+                           n_graphs=3, backend=b), 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pna", "meshgraphnet", "mace", "dimenet"])
+def test_gnn_forward_on_cuda_matches_torch_backend(cuda_device, name):
+    """Each model on backend ``cuda`` (every segment sum on the kernel,
+    counted) against ``torch``: outputs within the stated share of their
+    largest magnitude (2e-4 for node outputs, 1e-5 for energies)."""
+    run, tol = _gnn_runs(name, cuda_device)
+    with torch.no_grad():
+        before = segment_sum_sorted.launches
+        out = run("cuda")
+        torch.cuda.synchronize()
+        assert segment_sum_sorted.launches > before
+        ref = run("torch")
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    err = float((out - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+    assert err <= tol, err
+
+
+@pytest.mark.cuda
+def test_pna_grads_through_the_kernel_match_the_plain_version(cuda_device):
+    """The autograd entry (kernel forward, gather backward) against the
+    plain version's, at rtol 1e-3, atol 1e-5."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.gnn import PNA
+
+    cfg = reduced_config(ARCHS["pna"])
+    n, src, dst, mask = _gnn_graph(cuda_device)
+    rng = np.random.default_rng(7)
+    x = torch.as_tensor(rng.standard_normal((n, 12)).astype(np.float32), device=cuda_device)
+    labels = torch.as_tensor(rng.integers(0, 5, n), device=cuda_device)
+    grads = {}
+    for backend in ("cuda", "torch"):
+        model = PNA(cfg, 12, 5, generator=torch.Generator().manual_seed(1), device=cuda_device)
+        lg = model(x, src, dst, edge_mask=mask, backend=backend)
+        torch.nn.functional.cross_entropy(lg, labels).backward()
+        grads[backend] = {k: p.grad for k, p in model.named_parameters()}
+    for k, g in grads["cuda"].items():
+        torch.testing.assert_close(g, grads["torch"][k], rtol=1e-3, atol=1e-5, msg=k)
+
+
+def _halo_card_rank(plan, xs, seed) -> dict:
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.dist import partition_mesh
+    from repro_torch.models.gnn.halo_pna import PNA, pna_forward_halo, rank_inputs
+
+    mesh = partition_mesh()
+    model = PNA(reduced_config(ARCHS["pna"]), 12, 5,
+                generator=torch.Generator().manual_seed(seed), device=mesh.device)
+    before = segment_sum_sorted.launches
+    with torch.no_grad():
+        out = pna_forward_halo(model, mesh, **rank_inputs(plan, xs, mesh.rank, mesh.device))
+    torch.cuda.synchronize()
+    return {"out": out.cpu().numpy(), "launches": segment_sum_sorted.launches - before,
+            "calls": mesh.stats.snapshot()["calls"]}
+
+
+@pytest.mark.cuda
+def test_halo_pna_on_two_ranks_of_one_card_matches_dense(cuda_device):
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.dist import run_ranks
+    from repro_torch.dist.halo import build_halo_plan, scatter_nodes
+    from repro_torch.models.gnn import PNA
+
+    segment_sum_sorted.load()  # build once here, not in both ranks at once
+    pg = bfs_grow_partition(rmat_graph(10, 6, seed=3), 2, seed=1)
+    plan = build_halo_plan(pg)
+    x = np.random.default_rng(8).standard_normal((pg.graph.n_vertices, 12)).astype(np.float32)
+    ranks = run_ranks(_halo_card_rank, 2, device="cuda", timeout=600,
+                      args=(plan, scatter_nodes(plan, x), 4))
+    model = PNA(reduced_config(ARCHS["pna"]), 12, 5, generator=torch.Generator().manual_seed(4),
+                device=cuda_device)
+    with torch.no_grad():
+        dense = model(torch.as_tensor(x, device=cuda_device),
+                      torch.as_tensor(pg.graph.src, device=cuda_device),
+                      torch.as_tensor(pg.graph.dst, device=cuda_device)).cpu().numpy()
+    flat = np.concatenate([r["out"] for r in ranks]).reshape(2 * plan.n_local, -1)
+    np.testing.assert_allclose(flat[plan.perm], dense, atol=2e-4)
+    for r in ranks:
+        assert r["launches"] > 0 and r["calls"] == {"all_to_all": 2}

@@ -146,3 +146,37 @@ def test_mesh_ranks_import_neither_jax_nor_repro():
 
     for foreign in run_ranks(_rank_foreign_modules, 2, device="cpu", timeout=300):
         assert foreign == []
+
+
+def test_gnn_slice_modules_are_held_standalone():
+    """The GNN slice's modules are among the files and modules the checks
+    above cover, and its models refuse a CUDA build without a card."""
+    names = {_module_name(p) for p in PORT_FILES if p != SMOKE}
+    for mod in (
+        "repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.registry",
+        "repro_torch.configs.pna", "repro_torch.configs.meshgraphnet",
+        "repro_torch.configs.mace", "repro_torch.configs.dimenet",
+        "repro_torch.configs.mixtral_8x22b", "repro_torch.configs.deepseek_v3_671b",
+        "repro_torch.configs.granite_3_8b", "repro_torch.configs.mistral_nemo_12b",
+        "repro_torch.configs.tinyllama_1_1b", "repro_torch.configs.deepfm",
+        "repro_torch.models", "repro_torch.models.common", "repro_torch.models.gnn",
+        "repro_torch.models.gnn.message_passing", "repro_torch.models.gnn.pna",
+        "repro_torch.models.gnn.meshgraphnet", "repro_torch.models.gnn.e3",
+        "repro_torch.models.gnn.mace", "repro_torch.models.gnn.dimenet",
+        "repro_torch.models.gnn.halo_pna", "repro_torch.graph.sampler",
+        "repro_torch.dist.halo",
+    ):
+        assert mod in names, mod
+    if torch.cuda.is_available():
+        return
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.gnn import MACE, PNA, DimeNet, MeshGraphNet
+
+    for build in (
+        lambda: PNA(ARCHS["pna"].config, 4, 2),
+        lambda: MeshGraphNet(ARCHS["meshgraphnet"].config, 4, 4, 2),
+        lambda: MACE(ARCHS["mace"].config),
+        lambda: DimeNet(ARCHS["dimenet"].config),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
