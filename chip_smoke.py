@@ -9,10 +9,16 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
   2. segment_sum -- ``sorted_segment_sum`` at ogbn-products' full size
                 (N = 2,449,029, E = 61,859,140, D = 128, float32), ids
                 uniform and power-law (zipf 1.5); launch counts set to 0
-                just before and read just after.  Held per segment against
-                a float64 ``index_add_`` within 1e-6 of the segment's sum
-                of |vals|, then small and degenerate cases against the
-                plain version; timed beside its bound and ``index_add_``.
+                just before and read just after (each call must launch
+                ``len(segment_levels(E, D))`` levels).  Then the gnn path's
+                shapes, each call counted the same way: PNA's degrees
+                [E, 1] and message [E, 75] (float32 and bfloat16) at that
+                size, a MeshGraphNet batch [168,960, 128] and MACE's
+                [8,192, 1,152].  Each held per segment against a float64
+                ``index_add_`` within 1e-6 of the segment's sum of |vals|,
+                then small and degenerate cases (a view one row into its
+                tensor among them) against the plain version; timed beside
+                its bound and ``index_add_``.
   3. flash_attention -- ``flash_attention`` on one Mixtral-8x22B attention
                 layer at a 32k prefill (B=1, S=32768, H=48, Hk=8, d=128,
                 causal, window 4096, bfloat16) and a causal 8k case (H=32,
@@ -231,6 +237,7 @@ from repro_torch.kernels.segment_sum import (  # noqa: E402
     segment_sum_sorted,
     sorted_segment_sum,
 )
+from repro_torch.kernels.segment_sum.kernel import segment_levels  # noqa: E402
 from repro_torch.models.gnn import (  # noqa: E402
     MACE,
     PNA,
@@ -332,6 +339,19 @@ OGBN_PRODUCTS_N, OGBN_PRODUCTS_E, SEG_D = 2_449_029, 61_859_140, 128
 SEG_REL_TOL = 1e-6
 #: kernel against the plain version on the small cases (both float32)
 SEG_SMALL_REL_TOL = 1e-5
+#: the gnn path's own segment-sum shapes, each a row of the segment_sum
+#: phase at full size: (case, E, N, D, vals dtype) -- PNA's degrees and its
+#: [E, 75] message at ogbn-products' size (float32 and bfloat16; E cut with
+#: --scale), a MeshGraphNet minibatch_lg batch (168,960 edges into 169,984
+#: node slots, configs/base.py) and MACE's molecule batch (128 molecules,
+#: 8,192 edges of 1,152 = 128 x 9 features into 3,840 atoms); ids uniform
+SEG_GNN_SHAPES = (
+    ("pna_degrees_d1", OGBN_PRODUCTS_E, OGBN_PRODUCTS_N, 1, torch.float32),
+    ("pna_message_d75", OGBN_PRODUCTS_E, OGBN_PRODUCTS_N, 75, torch.float32),
+    ("pna_message_d75_bf16", OGBN_PRODUCTS_E, OGBN_PRODUCTS_N, 75, torch.bfloat16),
+    ("meshgraphnet_d128", 168_960, 169_984, 128, torch.float32),
+    ("mace_d1152", 8192, 3840, 1152, torch.float32),
+)
 #: one Mixtral-8x22B attention layer at a 32k prefill
 #: (src/repro/configs/mixtral_8x22b.py; benchmarks/kernel_bench.py:47-49
 #: unsharded), and the causal 8k case with granite-3-8b's and
@@ -580,7 +600,10 @@ def _seg_small_cases(device, seed: int) -> list[dict]:
         ("d10", 20_000, 900, 10, torch.float32, "uniform", torch.int32, True),
         ("d33", 20_000, 900, 33, torch.float32, "powerlaw", torch.int64, True),
         ("d75", 20_000, 900, 75, torch.float32, "powerlaw", torch.int32, True),
+        ("d1", 20_000, 900, 1, torch.float32, "powerlaw", torch.int32, True),
         ("bf16", 20_000, 900, 64, torch.bfloat16, "uniform", torch.int32, True),
+        ("bf16_d75", 20_000, 900, 75, torch.bfloat16, "uniform", torch.int64, True),
+        ("offset_view_d33", 20_000, 900, 33, torch.float32, "powerlaw", torch.int32, True),
         ("ids_out_of_range", 20_000, 900, 32, torch.float32, "out_of_range", torch.int32, True),
         ("unsorted", 20_000, 900, 32, torch.float32, "powerlaw", torch.int32, False),
         ("hub_levels", 2_000_000, 5000, 48, torch.float32, "powerlaw", torch.int32, True),
@@ -593,6 +616,8 @@ def _seg_small_cases(device, seed: int) -> list[dict]:
             raw = np.sort(rng.zipf(1.5, e) % n if skew == "powerlaw" else rng.integers(0, n, e))
         ids = torch.as_tensor(raw, device=device).to(idt)
         vals = torch.randn((e, d), generator=gen, device=device).to(vdt)
+        if name.startswith("offset_view"):  # views one row into their tensors: a peeled head
+            ids, vals = torch.cat([ids[:1], ids])[1:], torch.cat([vals[:1], vals])[1:]
         if not is_sorted:
             perm = torch.randperm(e, generator=gen, device=device)
             ids, vals = ids[perm], vals[perm]
@@ -625,26 +650,56 @@ def _seg_case(name: str, out, ids, vals, n: int) -> dict:
     del out
     largest = int(torch.bincount(ids, minlength=n).max())
     ids_long = ids.long()
-    lib_out = torch.zeros((n, d), dtype=torch.float32, device=vals.device)
-    bound_ms, bound_by = _seg_bound(e, n, d, 4, 4)
+    # index_add_ takes one dtype: a bfloat16 sum accumulates into bfloat16
+    lib_out = torch.zeros((n, d), dtype=vals.dtype, device=vals.device)
+    bound_ms, bound_by = _seg_bound(e, n, d, vals.element_size(), ids.element_size())
     lib_ms, lib_note = _library_ms(lambda: lib_out.index_add_(0, ids_long, vals), 5)
     del ids_long, lib_out
     return {
         "case": name, "E": e, "N": n, "D": d,
+        "vals": str(vals.dtype)[6:], "ids": str(ids.dtype)[6:],
         "largest_segment": largest,
         "max_abs_err": held["kernel_vs_plain_max_abs_err"],
         "against_float64": held,
         "ms": _median_ms(lambda: sorted_segment_sum(ids, vals, n, assume_sorted=True), 5),
         "plain_ms": _median_ms(lambda: reference_segment_sum(ids, vals, n), 5),
-        "library_ms": lib_ms, "library": "Tensor.index_add_ (float32)",
+        "library_ms": lib_ms, "library": f"Tensor.index_add_ ({str(vals.dtype)[6:]})",
         "library_note": lib_note,
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
 
 
+def _seg_gnn_rows(device, seed: int, scale: int) -> tuple[list[dict], int]:
+    """The gnn path's shapes (``SEG_GNN_SHAPES``), one at a time: each
+    entry call counted from 0 (it must launch ``len(segment_levels(E, D))``
+    levels), held against float64 and timed as ``_seg_case`` does."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 3)
+    rng = np.random.default_rng(seed + 3)
+    rows, launches = [], 0
+    for name, e, n, d, vdt in SEG_GNN_SHAPES:
+        if e == OGBN_PRODUCTS_E:
+            e >>= _cut(scale)
+        ids = _seg_ids(rng, e, n, "uniform", device)
+        vals = torch.randn((e, d), generator=gen, device=device).to(vdt)
+        torch.cuda.synchronize()
+        segment_sum_sorted.launches = 0
+        out = sorted_segment_sum(ids, vals, n, assume_sorted=True)
+        torch.cuda.synchronize()
+        count = segment_sum_sorted.launches
+        _check(count == len(segment_levels(e, d)),
+               f"segment sum {name}: {count} launches, not {len(segment_levels(e, d))}")
+        launches += count
+        rows.append({**_seg_case(name, out, ids, vals, n), "launches": count})
+        del out, ids, vals
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
 def phase_segment_sum(device, seed: int, scale: int) -> dict:
     """``sorted_segment_sum`` at ogbn-products' full size (E cut by
-    ``2**(22 - scale)`` below the full scale), uniform and power-law ids."""
+    ``2**(22 - scale)`` below the full scale), uniform and power-law ids;
+    then the gnn path's shapes (``SEG_GNN_SHAPES``)."""
     e = OGBN_PRODUCTS_E >> _cut(scale)
     n, d = OGBN_PRODUCTS_N, SEG_D
     gen = torch.Generator(device=device)
@@ -663,20 +718,23 @@ def phase_segment_sum(device, seed: int, scale: int) -> dict:
     launches = segment_sum_sorted.launches
     peak = torch.cuda.max_memory_allocated()
     # -- end of the entry point's calls --
-    _check(launches > 0, "sorted_segment_sum launched its kernel no time")
+    _check(launches == 2 * len(segment_levels(e, d)),
+           f"sorted_segment_sum launched {launches} levels, not 2 x {segment_levels(e, d)}")
 
     cases = [_seg_case(skew, outs.pop(skew), ids[skew], vals, n) for skew in skews]
     del vals, ids
     torch.cuda.empty_cache()
+    gnn_rows, gnn_launches = _seg_gnn_rows(device, seed, scale)
     small = _seg_small_cases(device, seed)
     torch.cuda.empty_cache()
     return {
         "shape": {"E": e, "N": n, "D": d, "dtype": "float32", "ids": "int32"},
         "cut": _cut(scale) > 0,
-        "launches": launches,
+        "levels": segment_levels(e, d),
+        "launches": launches + gnn_launches,
         "peak_device_bytes": peak,
         "rel_tol_vs_float64": SEG_REL_TOL,
-        "cases": cases,
+        "cases": cases + gnn_rows,
         "small": small,
     }
 

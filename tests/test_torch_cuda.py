@@ -225,7 +225,10 @@ def test_engine_on_cuda_matches_torch_backend(cuda_device, name):
 
 
 SEG_SHAPES = {
-    # name: (E, N, D, vals dtype, ids dtype, skew)
+    # name: (E, N, D, vals dtype, ids dtype, skew[, row offset]): ids uniform,
+    # zipf(1.5) "powerlaw", "out_of_range" or "hub" (90% on one segment, a
+    # run over many blocks' spans); a row offset makes ids and vals views
+    # that start that many rows into their tensors (a head the kernel peels)
     "e0": (0, 64, 16, torch.float32, torch.int32, "uniform"),
     "n_lt_8": (50, 5, 16, torch.float32, torch.int32, "uniform"),
     "single_edge": (1, 40, 16, torch.float32, torch.int32, "uniform"),
@@ -236,20 +239,34 @@ SEG_SHAPES = {
     "bf16_d10": (4096, 256, 10, torch.bfloat16, torch.int64, "powerlaw"),
     "out_of_range": (3000, 100, 32, torch.float32, torch.int32, "out_of_range"),
     "hub_levels": (1_000_000, 1000, 32, torch.float32, torch.int32, "powerlaw"),
+    "d1": (300_000, 5000, 1, torch.float32, torch.int32, "powerlaw"),
+    "d75_int64": (60_000, 2000, 75, torch.float32, torch.int64, "powerlaw"),
+    "bf16_d75": (60_000, 2000, 75, torch.bfloat16, torch.int32, "uniform"),
+    "d1152": (8192, 3840, 1152, torch.float32, torch.int32, "uniform"),
+    "offset_view_d75": (30_000, 900, 75, torch.float32, torch.int32, "powerlaw", 1),
+    "offset_view_bf16_d33": (30_000, 900, 33, torch.bfloat16, torch.int64, "uniform", 1),
+    "hub_spans": (1_000_000, 100, 128, torch.float32, torch.int32, "hub"),
 }
 
 
-def _seg_inputs(e, n, d, vdtype, idtype, skew, device, seed):
+def _seg_inputs(e, n, d, vdtype, idtype, skew, device, seed, offset=0):
     rng = np.random.default_rng(seed)
     if skew == "powerlaw":
         raw = rng.zipf(1.5, e) % n
     elif skew == "out_of_range":
         raw = rng.integers(-5, n + 5, e)
+    elif skew == "hub":
+        raw = np.where(rng.random(e) < 0.9, n // 3, rng.integers(0, n, e))
     else:
         raw = rng.integers(0, n, e)
     ids = torch.as_tensor(np.sort(raw), device=device).to(idtype)
     vals = torch.as_tensor(rng.standard_normal((e, d)).astype(np.float32), device=device)
-    return ids, vals.to(vdtype)
+    vals = vals.to(vdtype)
+    if offset:  # views `offset` rows into larger tensors
+        ids = torch.cat([ids[:offset], ids])[offset:]
+        vals = torch.cat([vals[:offset], vals])[offset:]
+        assert ids.storage_offset() == vals.storage_offset() // d == offset
+    return ids, vals
 
 
 def _assert_seg_close(out, ids, vals, n):
@@ -263,13 +280,14 @@ def _assert_seg_close(out, ids, vals, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", sorted(SEG_SHAPES))
 def test_segment_sum_kernel_matches_plain_version(cuda_device, shape):
-    e, n, d, vdtype, idtype, skew = SEG_SHAPES[shape]
-    ids, vals = _seg_inputs(e, n, d, vdtype, idtype, skew, cuda_device, seed=e + d)
+    e, n, d, vdtype, idtype, skew, *offset = SEG_SHAPES[shape]
+    ids, vals = _seg_inputs(e, n, d, vdtype, idtype, skew, cuda_device, seed=e + d,
+                            offset=offset[0] if offset else 0)
     before = segment_sum_sorted.launches
     out = sorted_segment_sum(ids, vals, n, assume_sorted=True)
     again = sorted_segment_sum(ids, vals, n, assume_sorted=True)
     torch.cuda.synchronize()
-    levels = len(segment_levels(e)) if e else 0
+    levels = len(segment_levels(e, d)) if e else 0
     assert segment_sum_sorted.launches == before + 2 * levels
     assert torch.equal(out, again)  # no atomics: the same bits every run
     _assert_seg_close(out, ids, vals, n)

@@ -13,7 +13,8 @@ there the port is held to ``reference_attention`` and not to the kernel.
 
 The CUDA kernels themselves are held against their plain versions on the
 card by ``tests/test_torch_cuda.py``; here a numpy replay of the segment-sum
-kernel's carry levels checks the scheme itself.
+kernel's carry levels (block spans, first and last run carried) checks the
+scheme itself.
 """
 
 import jax.numpy as jnp
@@ -134,18 +135,24 @@ def test_segment_sum_unsorted_ids_match_jax():
 
 
 def _replay_levels(ids, vals, n):
-    """numpy replay of csrc/segment_sum.cu: each sub-chunk stores its
-    inner runs, carries its first and last run, and the carries are
-    reduced again until one sub-chunk is left."""
-    sub = seg_kernel._SUB
-    out = np.zeros((n, vals.shape[1]), np.float64)
-    levels = seg_kernel.segment_levels(len(ids))
+    """numpy replay of csrc/segment_sum.cu's level scheme: each block's span
+    (``span_rows`` rows) stores the runs that lie wholly inside it and
+    carries its first and last run (a span of one run carries it and a zero
+    of the same id); the carries are reduced again until a level fits one
+    block, which stores every run.  Each segment must be stored once."""
+    d = vals.shape[1]
+    out = np.zeros((n, d), np.float64)
+    stored = np.zeros(n, bool)
+    levels = seg_kernel.segment_levels(len(ids), d)
     for i, m in enumerate(levels):
         last = i == len(levels) - 1
         assert len(ids) == m
+        span = seg_kernel.span_rows(m, d)
+        assert seg_kernel.launch_grid(m, d) == (-(-m // span),)
+        assert last == (span >= m)
         c_ids, c_vals = [], []
-        for lo in range(0, m, sub):
-            hi = min(lo + sub, m)
+        for lo in range(0, m, span):
+            hi = min(lo + span, m)
             cuts = [lo, *(lo + np.flatnonzero(np.diff(ids[lo:hi])) + 1), hi]
             runs = [(ids[a], vals[a:b].sum(0)) for a, b in zip(cuts[:-1], cuts[1:])]
             if last:
@@ -156,7 +163,8 @@ def _replay_levels(ids, vals, n):
                 inner, carried = runs[1:-1], [runs[0], runs[-1]]
             for sid, total in inner:
                 if 0 <= sid < n:
-                    assert not out[sid].any(), "a segment was stored twice"
+                    assert not stored[sid], "a segment was stored twice"
+                    stored[sid] = True
                     out[sid] = total
             c_ids += [c[0] for c in carried]
             c_vals += [c[1] for c in carried]
@@ -166,15 +174,58 @@ def _replay_levels(ids, vals, n):
     return out
 
 
-@pytest.mark.parametrize("e,n,skew", [(1, 5, "uniform"), (128, 7, "uniform"),
-                                      (129, 300, "uniform"), (20000, 2000, "uniform"),
-                                      (20000, 500, "powerlaw"), (40000, 3, "powerlaw")])
-def test_segment_sum_carry_levels_replay(e, n, skew):
-    ids = np.sort(_ids(e, n, skew, seed=e))
-    vals = _vals(e, 3, seed=e).astype(np.float64)
+def _replay_ids(e, n, skew, seed):
+    if skew == "hub":  # 90% of the edges on one segment: a run over many spans
+        rng = np.random.default_rng(seed)
+        return np.sort(np.where(rng.random(e) < 0.9, n // 3, rng.integers(0, n, e))).astype(np.int32)
+    if skew == "one":  # every edge on one segment: each span is a single run
+        return np.full(e, n // 2, np.int32)
+    return np.sort(_ids(e, n, skew, seed=seed))
+
+
+@pytest.mark.parametrize("e,n,skew,d", [(1, 5, "uniform", 3), (128, 7, "uniform", 3),
+                                        (129, 300, "uniform", 3), (20000, 2000, "uniform", 3),
+                                        (20000, 500, "powerlaw", 3), (40000, 3, "powerlaw", 3),
+                                        (300_000, 50, "hub", 1), (30_000, 10, "one", 40),
+                                        (20000, 700, "powerlaw", 75), (6000, 90, "uniform", 1152)])
+def test_segment_sum_carry_levels_replay(e, n, skew, d):
+    ids = _replay_ids(e, n, skew, seed=e)
+    rng = np.random.default_rng(e + 1)
+    if skew in ("hub", "one"):  # small integers: a segment of 10^5 terms sums exactly in float32
+        vals = rng.integers(-4, 5, (e, d)).astype(np.float64)
+    else:
+        vals = rng.standard_normal((e, d))
     ref = sorted_segment_sum(torch.as_tensor(ids), torch.as_tensor(vals), n).numpy()
     np.testing.assert_allclose(_replay_levels(ids, vals, n), ref, atol=1e-4, rtol=1e-5)
-    assert seg_kernel.segment_levels(e)[-1] <= seg_kernel._SUB
+    levels = seg_kernel.segment_levels(e, d)
+    assert seg_kernel.span_rows(levels[-1], d) == levels[-1]
+    if skew in ("hub", "one"):  # the run crosses several spans of the first level
+        assert seg_kernel.launch_grid(e, d)[0] > 2
+
+
+@pytest.mark.parametrize("e,d,n_levels", [
+    (61_859_140, 1, 3),     # PNA's degrees at ogbn-products' size
+    (61_859_140, 75, 3),    # PNA's [E, 75] messages
+    (61_859_140, 128, 3),   # ogbn-products at D = 128
+    (69_623_174, 128, 3),   # LIVJ's destinations
+    (168_960, 128, 2),      # a MeshGraphNet minibatch_lg batch
+    (168_960, 1, 2),
+    (8192, 1152, 3),        # MACE's molecule batch
+])
+def test_segment_levels_at_the_gnn_shapes(e, d, n_levels):
+    """Each level's span fits the kernel (at most NARROW_SPAN or WIDE_SPAN
+    rows, a multiple of 16 unless it is the last level's one block, offsets
+    within 32 bits), and the GNN path's shapes take 2-3 launches."""
+    levels = seg_kernel.segment_levels(e, d)
+    assert len(levels) == n_levels
+    for m in levels:
+        span = seg_kernel.span_rows(m, d)
+        cap = seg_kernel.NARROW_SPAN if d < seg_kernel.NARROW_D else seg_kernel.WIDE_SPAN
+        assert 1 <= span <= cap and span * d < 1 << 30
+        assert span >= m or span % 16 == 0
+    assert levels[1:] == [2 * seg_kernel.launch_grid(m, d)[0] for m in levels[:-1]]
+    if len(levels) > 1:  # the second level: tens of thousands of carries at most
+        assert levels[1] <= 2 * -(-e // 16) and levels[1] < 150_000
 
 
 # ---------------------------------------------------------------------------
@@ -417,11 +468,11 @@ def test_grid_check_refuses_the_legacy_zero_size_grid():
     check_grid((1, 1), "one block")
 
 
-@pytest.mark.parametrize("e,d", [(1, 1), (1, 10), (128, 33), (129, 75), (61_859_140, 128)])
+@pytest.mark.parametrize("e,d", [(1, 1), (1, 10), (128, 33), (129, 75), (61_859_140, 128),
+                                 (61_859_140, 1)])
 def test_wrapper_grids_are_never_empty(e, d):
-    for m in seg_kernel.segment_levels(e):
-        for vec in (1, 4):
-            check_grid(seg_kernel.launch_grid(m, d, vec), "segment sum")
+    for m in seg_kernel.segment_levels(e, d):
+        check_grid(seg_kernel.launch_grid(m, d), "segment sum")
     for variant in flash_kernel.VARIANTS:
         check_grid(flash_kernel.launch_grid(1, min(e, 40_000), 48, variant), "flash")
 
