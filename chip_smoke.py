@@ -29,10 +29,39 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 (a window 64 keys short must fail that bound), then small
                 cases (ragged S among them), each naming the kernel it
                 took; timed beside its bound and SDPA.
-  4. graph   -- ``rmat_graph(22, 8, seed=42)`` (about 4.2 M vertices and
+  4. lm      -- the LM serving path (``launch.steps`` prefill and decode
+                bundles over ``models.transformer``), each model built from
+                --seed in bfloat16 at its published widths: TinyLlama-1.1B
+                (22 layers) and Mixtral-8x22B cut to 2 of its 56 layers (a
+                window of 4,096, MoE top-2).  One 32,768-token prompt
+                (prefill_32k's length, batch cut from 32 to 1) through the
+                prefill step, with the flash launch counts at 0 just before:
+                every GQA layer must launch the TMA/wgmma kernel once; timed
+                (median of 3) and its peak read.  Held: layer 0's attention,
+                kernel against the plain version on three row blocks (as
+                phase 3, with a window 64 keys short that must fail); the
+                whole model's last-position logits at S = 4,096, ``cuda``
+                against ``torch``, in float32 within 1e-3 of their rms (a
+                window 64 keys short must fail), and TinyLlama's bfloat16
+                logits within 0.25 of their rms (the short window must fail
+                too; Mixtral's bfloat16 distance is reported); decode replay
+                against the forward at S = 64 in float32 within 1e-3 of the
+                logits' rms (a replay one cache slot late must fail).
+                TinyLlama's decode step at 8 sequences (cut from
+                128) against a 32,768-slot cache, 16 greedy tokens timed.
+                Then ``serve_batch`` at its reduced config.
+  5. recsys  -- DeepFM at its published config (39 fields x 1,000,000 rows
+                x 10, float32): serve_bulk's scores for 262,144 requests and
+                retrieval_cand's top 100 of 1,000,000 candidates, each held
+                on the host in float64 and timed; then
+                ``embedding_bag_segment`` over one table, 262,144 bags of 1
+                to 40 ids, on the segment-sum kernel at D = 10 (counted from
+                0), held per bag against float64 within 1e-6 of its sum of
+                |rows| and timed beside its bound and ``index_add_``.
+  6. graph   -- ``rmat_graph(22, 8, seed=42)`` (about 4.2 M vertices and
                 68 M directed edges, SNAP soc-LiveJournal1's size) split by
                 ``bfs_grow_partition(..., 8, seed=1)``; host build times.
-  5. gnn     -- the GNN stack (``repro_torch.models.gnn``), every segment
+  7. gnn     -- the GNN stack (``repro_torch.models.gnn``), every segment
                 sum on the kernel, each model's launches counted from 0:
                 PNA at its full config (4 layers, d 75, 4 aggregators x 3
                 scalers) full-batch at ogbn-products' size (N = 2,449,029,
@@ -47,13 +76,13 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 ``torch`` and invariant under two rotations; MeshGraphNet
                 (15 layers, d 128) on one minibatch_lg batch (1,024 seeds,
                 fanouts 15 and 10, 602 features) sampled from the graph of
-                phase 4; and halo PNA on 2 ranks sharing the card over
+                phase 6; and halo PNA on 2 ranks sharing the card over
                 gloo, on a scale-16 R-MAT graph split in two, against the
                 dense forward, with one ``all_to_all`` a layer.
-  6. segment_sum_livj -- ``sorted_segment_sum`` over that graph's sorted
+  8. segment_sum_livj -- ``sorted_segment_sum`` over that graph's sorted
                 destinations (an R-MAT in-degree spread, D = 128), held and
                 timed as in phase 2.
-  7. kernel  -- the CUDA relax kernel (every template instantiation the
+  9. kernel  -- the CUDA relax kernel (every template instantiation the
                 main path runs) held against its plain PyTorch version at the
                 main path's shapes (the local and the remote layout) and at
                 the degenerate shapes (no edges, n < 8, one edge), and
@@ -64,20 +93,20 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 bound and one ``scatter_reduce`` call.  Then
                 ``relax_phases``: a diagnosis build of the kernel
                 (``RELAX_PHASE_CLOCKS``) splits a block's cycles by phase.
-  8. oracle  -- BFS, SSSP, WCC and PageRank on a small graph on the card,
+  10. oracle  -- BFS, SSSP, WCC and PageRank on a small graph on the card,
                 held against the port's numpy oracles.
-  9. slice   -- the main path: BFS from 4 sources, WCC and 20 PageRank
+  11. slice   -- the main path: BFS from 4 sources, WCC and 20 PageRank
                 iterations through ``bsp.run_program`` on the ``cuda``
                 backend, with the kernel's launch counts set to 0 just
                 before and read just after.  Then the same runs on the
                 ``torch`` backend on the same card: state bit-identical for
                 BFS and WCC, allclose for PageRank, traces exact.  BFS
                 source 0 is held against the host BFS ``_bfs_hops``.
-  10. pipeline -- the BFS trace becomes the time function A, scaled to
+  12. pipeline -- the BFS trace becomes the time function A, scaled to
                 LIVJ's T_Min of 21 s; every placement strategy is billed at
                 delta = 60 s; ``predict_time_function`` gives the
                 metagraph's a-priori plan.
-  11. elastic -- the plan executed: ``ElasticBSPExecutor`` runs BFS from
+  13. elastic -- the plan executed: ``ElasticBSPExecutor`` runs BFS from
                 vertex 0 on LIVJ/8P, 8 supersteps per window, once per
                 placement strategy, each planned from the metagraph
                 prediction (in the trace's seconds) and re-planned online
@@ -94,7 +123,7 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 ``repartition=`` variant (on a cut graph where one
                 repartition pass over LIVJ/8P would take over 30 s), which
                 must move vertices.
-  12. serve  -- ``TraversalService`` answers 32 BFS queries (8 rows a
+  14. serve  -- ``TraversalService`` answers 32 BFS queries (8 rows a
                 batch, 8 supersteps a window): first all at t = 0 on all 8
                 VMs, which gives the highest rate mu it sustains, then Poisson
                 arrivals at 0.25 mu and 0.9 mu, elastic and static; launch
@@ -103,14 +132,14 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 ``torch`` backends' reports identical and every completed
                 query's state row too, the first 2 also equal to the host
                 BFS.
-  13. profile -- one more BFS traversal under ``torch.profiler``: the
+  15. profile -- one more BFS traversal under ``torch.profiler``: the
                 card's busy share, the kernels that take its time, and the
                 relax reduction's three kernels (partition, reduction,
                 fix-up) found by name.
-  14. relax_entries -- the two min-only entries (``bfs_relax_csr``,
+  16. relax_entries -- the two min-only entries (``bfs_relax_csr``,
                 ``bfs_relax``) at S=1 over the local edges, each against the
                 ``torch`` backend, timed beside the kernel alone.
-  15. mesh   -- the multi-GPU engine (``repro_torch.dist``): LIVJ/8P on D = 8
+  17. mesh   -- the multi-GPU engine (``repro_torch.dist``): LIVJ/8P on D = 8
                 ranks (one partition each) and D = 2 (four each), processes
                 that share the one card over gloo (NCCL refuses two ranks on
                 one card), which copies the CUDA payloads through the host.
@@ -152,6 +181,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import json
@@ -160,6 +190,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -238,6 +269,10 @@ from repro_torch.kernels.segment_sum import (  # noqa: E402
     sorted_segment_sum,
 )
 from repro_torch.kernels.segment_sum.kernel import segment_levels  # noqa: E402
+from repro_torch.launch.serve import serve_batch  # noqa: E402
+from repro_torch.launch.steps import build_bundle  # noqa: E402
+from repro_torch.models.attention import gqa_attend, gqa_qkv  # noqa: E402
+from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.models.gnn import (  # noqa: E402
     MACE,
     PNA,
@@ -248,6 +283,19 @@ from repro_torch.models.gnn import (  # noqa: E402
     sort_edges,
 )
 from repro_torch.models.gnn.halo_pna import pna_forward_halo, rank_inputs  # noqa: E402
+from repro_torch.models.recsys import (  # noqa: E402
+    deepfm_logits,
+    embedding_bag_segment,
+    retrieval_scores,
+)
+from repro_torch.models.transformer import (  # noqa: E402
+    Transformer,
+    init_lm_cache,
+    lm_decode_step,
+    lm_forward,
+    lm_hidden,
+)
+from repro_torch.models.transformer import _logits as lm_logits  # noqa: E402
 from repro_torch.serve import ServiceConfig, TraversalService, poisson_trace  # noqa: E402
 from repro_torch.serve.batcher import MicroBatcher  # noqa: E402
 
@@ -368,6 +416,44 @@ FLASH_CHECK_ROWS = 512
 #: (half a 128-key tile) must fail the scaled bound on the rows it changes;
 #: it runs where the window is shorter than S (not in a cut run)
 FLASH_CONTROL_SHORT = 64
+#: the lm phase: each model at its published widths (configs/*.py), built
+#: from --seed in bfloat16: (arch, layers kept, or None for all).  Mixtral's
+#: 141 B parameters do not fit one card, so its depth is cut, never a width.
+LM_MODELS = (("tinyllama-1.1b", None), ("mixtral-8x22b", 2))
+#: prefill_32k's length at batch 1 (its published batch is 32); decode_32k's
+#: cache at 8 sequences (published: 128), 16 greedy tokens
+LM_PREFILL_S, LM_PREFILL_BATCH = 32768, 1
+LM_DECODE_BATCH, LM_DECODE_CACHE, LM_DECODE_TOKENS = 8, 32768, 16
+#: the whole model's last-position logits, ``cuda`` against ``torch``, at
+#: this length (the plain backend's chunked path), in float32 (the same
+#: widths, float32 parameters from --seed): max |diff| <= LM_LOGIT_SHARE *
+#: rms(logits), and a run with the window FLASH_CONTROL_SHORT keys short
+#: must fail it.  In bfloat16 the two backends round attention differently
+#: (the kernel keeps float32 scores, the plain path rounds them): the dense
+#: model's (LM_BF16_GATED) bfloat16 logits are held to LM_BF16_LOGIT_SHARE *
+#: rms(logits), between the sound distance (0.086 of an rms near 1 on an
+#: H100) and the short window's (0.6 in float32), and the short window must
+#: fail it too.  An MoE layer's top-2 choice flips on a near tie, which
+#: moves a token by a whole expert, so Mixtral's bfloat16 distance is
+#: reported, not gated.
+LM_CHECK_S = 4096
+LM_LOGIT_SHARE, LM_BF16_LOGIT_SHARE = 1e-3, 0.25
+LM_BF16_GATED = ("tinyllama-1.1b",)
+#: decode replay against the forward (tests/test_archs_lm.py's
+#: test_decode_matches_forward at the published widths): float32, this many
+#: positions, each step's logits within LM_LOGIT_SHARE * rms(the forward's
+#: logits); the control, each token written one cache slot late (slot 0
+#: left empty and read by every step), must fail that bound
+LM_REPLAY_S = 64
+#: the recsys phase: DeepFM at its published config (configs/deepfm.py:
+#: 39 fields x 1,000,000 rows x 10, float32) on serve_bulk (262,144
+#: requests) and retrieval_cand (1,000,000 candidates, top 100); scores
+#: held on RECSYS_CHECK_ROWS rows against the same function in float64 on
+#: the host within RECSYS_SCORE_TOL.  Then the ragged bag over one table:
+#: RECSYS_BAGS bags of 1 to RECSYS_BAG_MAX ids (uniform), per bag within
+#: SEG_REL_TOL of its sum of |rows| against float64.
+RECSYS_CHECK_ROWS, RECSYS_SCORE_TOL = 4096, 1e-5
+RECSYS_BAGS, RECSYS_BAG_MAX = 262_144, 40
 #: the template instantiations the main path runs, and the program each
 #: serves there: (variant, reduce, dtype, program name)
 MAIN_VARIANTS = (
@@ -989,6 +1075,369 @@ def phase_flash(device, seed: int, scale: int) -> dict:
     }
 
 
+# -- the LM stack ----------------------------------------------------------------
+
+
+def _zero_flash_counts() -> None:
+    flash_fwd.launches = 0
+    flash_fwd.variant_launches = dict.fromkeys(flash_fwd.variant_launches, 0)
+
+
+def _short_window(cfg, s: int) -> int | None:
+    """The control's window: FLASH_CONTROL_SHORT keys short of the keys the
+    last row reads (None where it reads no more than that)."""
+    keys = min(cfg.sliding_window or s, s)
+    return keys - FLASH_CONTROL_SHORT if keys > FLASH_CONTROL_SHORT else None
+
+
+def _lm_layer_attention(model, tokens) -> dict:
+    """Layer 0's attention at the prefill's shape, as the model calls it:
+    the kernel against the plain version on the first, a middle and the
+    last FLASH_CHECK_ROWS rows (FLASH_BF16_TOL and the scaled bound; a window
+    FLASH_CONTROL_SHORT keys short must fail the bound), timed beside its
+    bound, the plain version and SDPA."""
+    cfg = model.cfg
+    layer = model.stacks()[0][1][0]
+    with torch.inference_mode():
+        q, k, v = gqa_qkv(layer.attn, cfg, rms_norm(model.embed[tokens], layer.attn_norm))
+        out = gqa_attend(q, k, v, cfg)
+        short = _short_window(cfg, q.shape[1])
+        control = None if short is None else flash_attention(q, k, v, causal=True, window=short)
+    torch.cuda.synchronize()
+    b, s, h, d = q.shape
+    shape = {"b": b, "s": s, "h": h, "hk": k.shape[2], "d": d, "causal": True,
+             "window": cfg.sliding_window}
+    rows = []
+    for r0 in sorted({0, max(0, s // 2 - FLASH_CHECK_ROWS // 2), max(0, s - FLASH_CHECK_ROWS)}):
+        r1 = min(s, r0 + FLASH_CHECK_ROWS)
+        ref = attention_rows(q, k, v, r0, r1, causal=True, window=cfg.sliding_window)
+        err = _max_abs_err(out[:, r0:r1].float(), ref)
+        ratio = bf16_tolerance_ratio(out[:, r0:r1], ref)
+        _check(torch.allclose(out[:, r0:r1].float(), ref, atol=FLASH_BF16_TOL,
+                              rtol=FLASH_BF16_TOL) and ratio <= 1.0,
+               f"lm {cfg.name} layer 0 attention rows [{r0}, {r1}) disagree with the plain "
+               f"version (max abs err {err}, scaled bound ratio {ratio})")
+        rows.append({"rows": [r0, r1], "max_abs_err": err, "tol_ratio": ratio})
+        if control is not None:
+            rows[-1]["control_tol_ratio"] = bf16_tolerance_ratio(control[:, r0:r1], ref)
+    _check(control is None or max(r["control_tol_ratio"] for r in rows) > 1.0,
+           f"lm {cfg.name}: a window {FLASH_CONTROL_SHORT} keys short passes the scaled bound")
+    del control
+    bound_ms, bound_by, pairs = _flash_bound(shape, q.element_size())
+    lib_ms, lib_note = _sdpa_ms(q, k, v, shape)
+    return {
+        "case": f"{cfg.name}_layer0_{s}", "shape": shape, "dtype": str(q.dtype)[6:],
+        "pairs": pairs, "variant": _flash_variant(q, k, v),
+        "max_abs_err": max(r["max_abs_err"] for r in rows), "checked_rows": rows,
+        "ms": _median_ms(lambda: gqa_attend(q, k, v, cfg), 5),
+        "plain_ms": _median_ms(lambda: reference_attention(
+            q, k, v, causal=True, window=cfg.sliding_window), 1),
+        "library_ms": lib_ms, "library": lib_note,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def _last_logits(model, tokens, backend=None) -> torch.Tensor:
+    with torch.inference_mode():
+        h, _, _ = lm_hidden(model, tokens, backend=backend)
+        return lm_logits(model, h[:, -1:])[:, -1].float()
+
+
+def _lm_logits_check(model, tokens, share: float, gate: bool) -> dict:
+    """The whole model's last-position logits at LM_CHECK_S tokens, ``cuda``
+    against ``torch``.  With ``gate`` they must lie within ``share`` of the
+    logits' rms, and the same run with every layer's window
+    FLASH_CONTROL_SHORT keys short must miss that bound; without, the
+    distance is reported."""
+    cfg = model.cfg
+    t = tokens[:, :LM_CHECK_S]
+    s = t.shape[1]
+    got = _last_logits(model, t)
+    ref = _last_logits(model, t, backend="torch")
+    bound = share * float(ref.square().mean().sqrt())
+    ratio = _max_abs_err(got, ref) / bound
+    _check(bool(torch.isfinite(got).all()) and (not gate or ratio <= 1.0),
+           f"lm {cfg.name}: logits at S={s} off the torch backend by {ratio} of the bound")
+    res = {"s": s, "dtype": str(model.embed.dtype)[6:], "gated": gate, "share": share,
+           "bound": bound,
+           "max_abs_err": _max_abs_err(got, ref), "tol_ratio": ratio,
+           "same_next_token": bool(torch.equal(got.argmax(-1), ref.argmax(-1)))}
+    short = _short_window(cfg, s)
+    if gate and short is not None:
+        model.cfg = dataclasses.replace(cfg, sliding_window=short)
+        try:
+            control = _last_logits(model, t)
+        finally:
+            model.cfg = cfg
+        res["control_window"] = short
+        res["control_tol_ratio"] = _max_abs_err(control, ref) / bound
+        _check(res["control_tol_ratio"] > 1.0,
+               f"lm {cfg.name}: a window {FLASH_CONTROL_SHORT} keys short passes the logits "
+               f"bound ({res['control_tol_ratio']})")
+    return res
+
+
+def _lm_float32_checks(cfg, tokens, device, seed: int) -> tuple[dict, dict]:
+    """The float32 model at the published widths: the logits check (gated)
+    and the decode replay against the forward: LM_REPLAY_S greedy-prefix
+    steps through ``lm_decode_step``, each step's logits within
+    LM_LOGIT_SHARE of the full forward's logits' rms at that position; the
+    same replay with every token written one slot late must miss it."""
+    model = Transformer(cfg, generator=_gen(device, seed + 2), device=device,
+                        dtype=torch.float32)
+    logits = _lm_logits_check(model, tokens, LM_LOGIT_SHARE, gate=True)
+    toks = tokens[:, :LM_REPLAY_S]
+
+    def replay(late: int) -> float:
+        cache = init_lm_cache(cfg, 1, LM_REPLAY_S, torch.float32, device)
+        err = 0.0
+        for pos in range(LM_REPLAY_S - late):
+            lg, cache = lm_decode_step(model, cache, toks[:, pos:pos + 1], pos + late)
+            err = max(err, _max_abs_err(lg[0, 0], full[0, pos]))
+        return err
+
+    with torch.inference_mode():
+        full = lm_forward(model, toks)[0]
+        tol = LM_LOGIT_SHARE * float(full.float().square().mean().sqrt())
+        err, control = replay(0), replay(1)
+    _check(err <= tol, f"lm {cfg.name}: decode replay off the forward by {err} (> {tol})")
+    _check(control > tol, f"lm {cfg.name}: a replay one cache slot late passes the bound "
+                          f"({control} <= {tol})")
+    del model, full
+    torch.cuda.empty_cache()
+    return logits, {"s": LM_REPLAY_S, "dtype": "float32", "max_abs_err": err, "tol": tol,
+                    "control_one_slot_late": control}
+
+
+def _lm_decode(arch: str, model, device, seed: int) -> dict:
+    """decode_32k's step at LM_DECODE_BATCH sequences: LM_DECODE_TOKENS
+    greedy tokens against a LM_DECODE_CACHE-slot cache whose earlier slots
+    hold seeded keys and values, timed between CUDA events."""
+    cfg = model.cfg
+    bundle = build_bundle(arch, "decode_32k", config=cfg, device=device)
+    gen = _gen(device, seed + 4)
+    cache = init_lm_cache(cfg, LM_DECODE_BATCH, LM_DECODE_CACHE, model.embed.dtype, device)
+    for leaves in cache.values():
+        for t in leaves.values():
+            t.normal_(generator=gen)
+    state = {"params": model, "cache": cache}
+    tok = torch.randint(0, cfg.vocab, (LM_DECODE_BATCH, 1), generator=gen, device=device)
+    pos0 = LM_DECODE_CACHE - LM_DECODE_TOKENS - 1
+    state, out = bundle.step_fn(state, {"tokens": tok, "pos": pos0})  # warm-up
+    tok = out["next_token"][:, None]
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(LM_DECODE_TOKENS):
+        state, out = bundle.step_fn(state, {"tokens": tok, "pos": pos0 + 1 + i})
+        tok = out["next_token"][:, None]
+    stop.record()
+    stop.synchronize()
+    ms = start.elapsed_time(stop)
+    # cuBLAS's Hopper GEMMs are the kernels named nvjet_*
+    profile = _profile(lambda: bundle.step_fn(
+        state, {"tokens": tok, "pos": LM_DECODE_CACHE - 1}), "nvjet", "gemm_ms")
+    _check(tok.shape == (LM_DECODE_BATCH, 1) and bool(((tok >= 0) & (tok < cfg.vocab)).all()),
+           f"lm {arch}: decode tokens out of range")
+    del state, cache
+    torch.cuda.empty_cache()
+    return {"batch": LM_DECODE_BATCH, "cache_len": LM_DECODE_CACHE,
+            "tokens": LM_DECODE_TOKENS, "positions": [pos0 + 1, pos0 + LM_DECODE_TOKENS],
+            "ms_per_token": ms / LM_DECODE_TOKENS,
+            "tokens_per_s": LM_DECODE_BATCH * LM_DECODE_TOKENS / (ms / 1e3),
+            "profile": profile,
+            "cut": {"batch": [ARCHS[arch].shapes()["decode_32k"].global_batch,
+                              LM_DECODE_BATCH]}}
+
+
+def _lm_model_run(arch: str, layers: int | None, device, seed: int, scale: int) -> dict:
+    """One model: built from ``seed`` through the prefill bundle, its prefill
+    counted (every GQA layer must launch the TMA/wgmma flash kernel once),
+    timed and read for its peak; then held (layer 0's attention, the
+    logits, the decode replay) and, for the first model, decode timed."""
+    cfg = ARCHS[arch].config
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    s = max(2 * FLASH_CHECK_ROWS, LM_PREFILL_S >> _cut(scale))
+    bundle = build_bundle(arch, "prefill_32k", config=cfg, device=device)
+    t0 = time.perf_counter()
+    state = bundle.init_state_fn(seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = state["params"]
+    tokens = torch.randint(0, cfg.vocab, (LM_PREFILL_BATCH, s),
+                           generator=_gen(device, seed + 1), device=device)
+    torch.cuda.synchronize()
+
+    # -- the prefill step, with the flash launch counts at 0 just before --
+    _zero_flash_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = bundle.step_fn(state, {"tokens": tokens})
+    torch.cuda.synchronize()
+    launches, variants = flash_fwd.launches, dict(flash_fwd.variant_launches)
+    peak = torch.cuda.max_memory_allocated()
+    # -- end of the prefill step --
+    _check(launches == cfg.n_layers and variants["bfloat16-wgmma"] == cfg.n_layers,
+           f"lm {arch}: prefill launched flash {variants}, not {cfg.n_layers} x bfloat16-wgmma")
+    nxt = out["next_token"]
+    _check(nxt.shape == (LM_PREFILL_BATCH,) and bool(((nxt >= 0) & (nxt < cfg.vocab)).all()),
+           f"lm {arch}: prefill's next token out of range")
+    prefill_ms = _median_ms(lambda: bundle.step_fn(state, {"tokens": tokens}), 3)
+    profile = _profile(lambda: bundle.step_fn(state, {"tokens": tokens}), "flash_fwd",
+                       "flash_kernel_ms")
+    published = ARCHS[arch].config
+    res = {
+        "arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.d_head], "window": cfg.sliding_window,
+        "moe": None if cfg.moe is None else [cfg.moe.n_experts, cfg.moe.top_k],
+        "params": sum(p.numel() for p in model.parameters()), "init_s": init_s,
+        "prefill": {"batch": LM_PREFILL_BATCH, "s": s, "prefill_ms": prefill_ms,
+                    "tokens_per_s": LM_PREFILL_BATCH * s / (prefill_ms / 1e3),
+                    "peak_device_bytes": peak, "flash_launches": launches,
+                    "variant_launches": variants, "profile": profile},
+        "cut": {"batch": [ARCHS[arch].shapes()["prefill_32k"].global_batch, LM_PREFILL_BATCH],
+                **({"n_layers": [published.n_layers, cfg.n_layers]} if layers else {}),
+                **({"s": [LM_PREFILL_S, s]} if s != LM_PREFILL_S else {})},
+    }
+    res["attention"] = _lm_layer_attention(model, tokens)
+    res["logits_bf16"] = _lm_logits_check(model, tokens, LM_BF16_LOGIT_SHARE,
+                                          gate=arch in LM_BF16_GATED)
+    if arch == LM_MODELS[0][0]:
+        res["decode"] = _lm_decode(arch, model, device, seed)
+    del state, model, out
+    torch.cuda.empty_cache()
+    res["logits"], res["replay"] = _lm_float32_checks(cfg, tokens, device, seed)
+    return res
+
+
+def phase_lm(device, seed: int, scale: int) -> dict:
+    """The LM serving path (``repro_torch.launch.steps``) at the published
+    widths of ``LM_MODELS``, then ``serve_batch`` at its reduced config."""
+    runs = [_lm_model_run(arch, layers, device, seed, scale) for arch, layers in LM_MODELS]
+    tokens = serve_batch(LM_MODELS[0][0], device=device, seed=seed, verbose=False)
+    again = serve_batch(LM_MODELS[0][0], device=device, seed=seed, verbose=False)
+    _check(tokens.shape == (4, 16) and np.array_equal(tokens, again),
+           "serve_batch on the card: not [4, 16] or not the same tokens twice")
+    return {
+        "cut": _cut(scale) > 0,
+        "launches": sum(r["prefill"]["flash_launches"] for r in runs),
+        "models": runs,
+        "serve_batch": {"arch": LM_MODELS[0][0], "config": "reduced", "tokens": tokens.tolist()},
+    }
+
+
+# -- recsys --------------------------------------------------------------------------
+
+
+def _host_f64(model) -> types.SimpleNamespace:
+    """DeepFM's parameters on the host in float64, for the functions of
+    ``models.recsys`` to run as an oracle."""
+    mlp = copy.deepcopy(model.mlp).to("cpu", torch.float64)
+    return types.SimpleNamespace(
+        tables=model.tables.detach().to("cpu", torch.float64),
+        first_order=model.first_order.detach().to("cpu", torch.float64),
+        mlp=mlp, bias=model.bias.detach().to("cpu", torch.float64))
+
+
+def _recsys_bag(model, device, seed: int) -> dict:
+    """The ragged bag over field 0's table: RECSYS_BAGS bags of 1 to
+    RECSYS_BAG_MAX ids through ``embedding_bag_segment`` (the segment-sum
+    kernel at D = 10, counted), held per bag against float64 and timed
+    beside its bound and ``index_add_`` (``_seg_case``), and the whole entry
+    (gather, sort, kernel) timed."""
+    table = model.tables.detach()[0]
+    v, d = table.shape
+    rng = np.random.default_rng(seed + 5)
+    lengths = rng.integers(1, RECSYS_BAG_MAX + 1, RECSYS_BAGS)
+    bag_ids = torch.as_tensor(np.repeat(np.arange(RECSYS_BAGS, dtype=np.int32), lengths),
+                              device=device)
+    flat_ids = torch.as_tensor(rng.integers(0, v, int(lengths.sum())).astype(np.int32),
+                               device=device)
+    nnz = int(flat_ids.shape[0])
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        # -- the entry's call, with the launch count at 0 just before --
+        segment_sum_sorted.launches = 0
+        out = embedding_bag_segment(table, flat_ids, bag_ids, RECSYS_BAGS)
+        torch.cuda.synchronize()
+        launches = segment_sum_sorted.launches
+        # -- end of the entry's call --
+        _check(launches == len(segment_levels(nnz, d)),
+               f"recsys bag: {launches} launches, not {len(segment_levels(nnz, d))}")
+        rows = table.index_select(0, flat_ids.long())
+        case = _seg_case(f"recsys_bag_d{d}", out, bag_ids, rows, RECSYS_BAGS)
+        bag_ms = _median_ms(
+            lambda: embedding_bag_segment(table, flat_ids, bag_ids, RECSYS_BAGS), 5)
+    return {**case, "launches": launches, "levels": segment_levels(nnz, d), "bag_ms": bag_ms,
+            "bag_lengths": [1, RECSYS_BAG_MAX]}
+
+
+def phase_recsys(device, seed: int) -> dict:
+    """DeepFM's serving path (``repro_torch.launch.steps``) at its published
+    config: serve_bulk's scores and retrieval_cand's top 100, each held on the
+    host in float64 and timed; then the ragged bag on the segment-sum kernel."""
+    cfg = ARCHS["deepfm"].config
+    serve = build_bundle("deepfm", "serve_bulk", device=device)
+    retrieval = build_bundle("deepfm", "retrieval_cand", device=device)
+    t0 = time.perf_counter()
+    state = serve.init_state_fn(seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = state["params"]
+    gen = _gen(device, seed + 1)
+    ids = torch.randint(0, cfg.vocab_per_field, serve.abstract_inputs["ids"].shape,
+                        generator=gen, device=device, dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    scores = serve.step_fn(state, {"ids": ids})["scores"]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    _check(scores.shape == (ids.shape[0],) and bool(torch.isfinite(scores).all())
+           and bool(((scores >= 0) & (scores <= 1)).all()), "recsys serve: scores not in [0, 1]")
+    host = _host_f64(model)
+    with torch.inference_mode():
+        ref = torch.sigmoid(deepfm_logits(host, ids[:RECSYS_CHECK_ROWS].cpu()))
+    serve_err = _max_abs_err(scores[:RECSYS_CHECK_ROWS].cpu(), ref)
+    _check(serve_err <= RECSYS_SCORE_TOL, f"recsys serve: scores off float64 by {serve_err}")
+    serve_ms = _median_ms(lambda: serve.step_fn(state, {"ids": ids}), 5)
+
+    n_cand = retrieval.abstract_inputs["candidates"].shape[0]
+    q_ids = torch.randint(0, cfg.vocab_per_field, retrieval.abstract_inputs["ids"].shape,
+                          generator=gen, device=device, dtype=torch.int32)
+    cands = torch.randn((n_cand, cfg.embed_dim), generator=gen, device=device)
+    batch = {"ids": q_ids, "candidates": cands}
+    top = retrieval.step_fn(state, batch)
+    torch.cuda.synchronize()
+    k = top["top_ids"].shape[1]
+    with torch.inference_mode():
+        full64 = retrieval_scores(host, q_ids.cpu(), cands.cpu().double())[0]
+    kth = float(torch.topk(full64, k).values[-1])
+    got_ids = top["top_ids"][0].cpu()
+    score_err = _max_abs_err(top["top_scores"][0].cpu(), full64[got_ids])
+    # every id returned is a top-k id of the float64 scores, up to a near tie
+    _check(score_err <= RECSYS_SCORE_TOL and len(set(got_ids.tolist())) == k
+           and bool((full64[got_ids] >= kth - RECSYS_SCORE_TOL).all()),
+           f"recsys retrieval: top {k} off the float64 top {k} (score err {score_err})")
+    retrieval_ms = _median_ms(lambda: retrieval.step_fn(state, batch), 5)
+    del host, full64
+    bag = _recsys_bag(model, device, seed)
+    del state, model, scores, cands
+    torch.cuda.empty_cache()
+    return {
+        "config": {"fields": cfg.n_sparse, "rows": cfg.vocab_per_field, "dim": cfg.embed_dim,
+                   "mlp": list(cfg.mlp_dims), "multi_hot": cfg.multi_hot},
+        "init_s": init_s,
+        "serve_bulk": {"batch": ids.shape[0], "ms": serve_ms,
+                       "requests_per_s": ids.shape[0] / (serve_ms / 1e3),
+                       "peak_device_bytes": peak, "checked_rows": RECSYS_CHECK_ROWS,
+                       "max_abs_err_vs_float64": serve_err},
+        "retrieval_cand": {"candidates": n_cand, "k": k, "ms": retrieval_ms,
+                           "max_abs_err_vs_float64": score_err},
+        "tol": RECSYS_SCORE_TOL,
+        "launches": bag["launches"],
+        "bag": bag,
+    }
+
+
 def build_graph(scale: int, parts: int) -> tuple[object, dict]:
     """The LIVJ-shaped graph and its partition, with host build times."""
     t0 = time.perf_counter()
@@ -1080,7 +1529,7 @@ def _gnn_pna_full(device, seed: int, scale: int) -> tuple[dict, dict]:
         _check(err <= GNN_ATOL, f"PNA on cuda differs from torch by {err} (> {GNN_ATOL})")
         del plain
         plain_ms = _median_ms(lambda: model(x, edges, backend="torch"), 3)
-        profile = _gnn_profile(lambda: model(x, edges, backend="cuda"))
+        profile = _profile(lambda: model(x, edges, backend="cuda"))
         # the kernel at the forward's own call: layer 0's messages
         m = model.layers[0].msg(model.encode(x)).index_select(0, edges.src)
         del out
@@ -1101,10 +1550,12 @@ def _gnn_pna_full(device, seed: int, scale: int) -> tuple[dict, dict]:
     return line, case
 
 
-def _gnn_profile(fn) -> dict:
-    """One forward under ``torch.profiler``: the card's busy share of its
-    wall time (a lower bound: the profiler lengthens the wall), the
-    segment-sum kernel's share of the busy time and the top kernels."""
+def _profile(fn, kernel: str = "segment_sum_level_kernel",
+             key: str = "segment_sum_kernel_ms") -> dict:
+    """One call under ``torch.profiler``: the card's busy share of its wall
+    time (a lower bound: the profiler lengthens the wall), the device time
+    of the kernels whose name holds ``kernel`` (under ``key``) and the top
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1115,10 +1566,10 @@ def _gnn_profile(fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = _device_rows(prof)
     busy_ms = sum(r[1] for r in rows)
-    kernel_ms = sum(r[1] for r in rows if "segment_sum_level_kernel" in r[0])
+    kernel_ms = sum(r[1] for r in rows if kernel in r[0])
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms if wall_ms else None,
-            "segment_sum_kernel_ms": kernel_ms,
+            key: kernel_ms,
             "top": [{"name": k[:90], "ms": ms, "count": c} for k, ms, c in rows[:10]]}
 
 
@@ -2626,7 +3077,7 @@ def phase_mesh(pg, runs: dict, bfs_trace, pred_tf, device, seed: int) -> dict:
 
 def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
                  seg_livj: dict, path_launches: dict, mesh_planes: list, gnn: dict,
-                 gnn_case: dict) -> dict:
+                 gnn_case: dict, lm: dict, recsys: dict) -> dict:
     """One entry per kernel the main path launched, with its numbers at the
     main path's own shape: the relax kernel's local closure reduction, the
     segment sum over uniform ids, the flash kernel at the Mixtral 32k
@@ -2638,7 +3089,9 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
     summed over its ranks), and the float32-min entry its times at one
     mesh rank's planes (``mesh_planes``); the segment-sum entry its
     launches on its own path and the gnn path (every model's run, the halo
-    ranks' summed)."""
+    ranks' summed) and the recsys path (the ragged bag, its case under
+    ``cases``); the flash entry its launches on the lm path (every GQA
+    layer's prefill) and each model's layer-0 case."""
     entries = []
     for variant, _, _, prog in MAIN_VARIANTS:
         cases = checks[variant]
@@ -2676,15 +3129,18 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
          flash["variant_launches"]["bfloat16-wgmma"]),
     ):
         main = phase["cases"][0]
-        more = phase["cases"][1:] + (seg_livj["cases"] + [gnn_case] if phase is seg else [])
+        more = phase["cases"][1:] + (
+            seg_livj["cases"] + [gnn_case, recsys["bag"]] if phase is seg
+            else [m["attention"] for m in lm["models"]])
         entries.append({
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
             "launches": launches,
-            **({"launches_by_path": {"segment_sum": launches, "gnn": gnn["launches"]}}
-               if phase is seg else {}),
+            "launches_by_path": (
+                {"segment_sum": launches, "gnn": gnn["launches"], "recsys": recsys["launches"]}
+                if phase is seg else {"flash_attention": launches, "lm": lm["launches"]}),
             "max_abs_err": max(c["max_abs_err"] for c in [main, *more, *phase["small"]]),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],
@@ -2724,6 +3180,10 @@ def main(argv=None) -> int:
     _emit("segment_sum", report["segment_sum"])
     report["flash_attention"] = phase_flash(device, args.seed, args.scale)
     _emit("flash_attention", report["flash_attention"])
+    report["lm"] = phase_lm(device, args.seed, args.scale)
+    _emit("lm", report["lm"])
+    report["recsys"] = phase_recsys(device, args.seed)
+    _emit("recsys", report["recsys"])
     pg, report["graph"] = build_graph(args.scale, LIVJ_PARTS)
     _emit("graph", report["graph"])
     report["gnn"], gnn_case = phase_gnn(pg, device, args.seed, args.scale)
@@ -2757,7 +3217,8 @@ def main(argv=None) -> int:
         checks, report["slice"]["variant_launches"], report["segment_sum"],
         report["flash_attention"], report["segment_sum_livj"],
         {path: report[path]["variant_launches"] for path in ("elastic", "serve", "mesh")},
-        report["mesh"]["kernel_planes"], report["gnn"], gnn_case,
+        report["mesh"]["kernel_planes"], report["gnn"], gnn_case, report["lm"],
+        report["recsys"],
     )["kernels"]
     report["wall_s"] = time.perf_counter() - t_start
     report["phase_seconds"] = dict(PHASE_SECONDS)

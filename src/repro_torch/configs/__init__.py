@@ -1,8 +1,7 @@
 """Architecture configs (``repro.configs`` counterpart): one module per
-assigned architecture, plain dataclasses copied as they are.  The LM and
-recsys configs are shape data only until their models are ported; they are
-here so ``registry.reduced_config`` treats every arch as the reference
-does.  ``registry.ARCHS`` maps arch id -> ArchSpec."""
+assigned architecture, plain dataclasses copied as they are, so
+``registry.reduced_config`` treats every arch as the reference does.
+``registry.ARCHS`` maps arch id -> ArchSpec."""
 
 from repro_torch.configs.base import (
     ArchSpec,

@@ -1,12 +1,14 @@
 """Carry the system's "weights" across from numpy: the graph, its partition,
-the carried traversal state and the GNN models' parameters.
+the carried traversal state and the models' parameters.
 
 Everything here takes plain numpy arrays (never an object of the JAX
 package), so a graph built anywhere -- by ``repro``, by a loader, by a test
 -- becomes the port's ``PartitionedGraph`` with the same bytes, a window
-state pulled to the host resumes on the port's engine, and a GNN parameter
-tree (nested dicts and lists of arrays, as ``init_pna`` and its siblings
-build it) becomes the port's module with the same values.
+state pulled to the host resumes on the port's engine, and a parameter
+tree (nested dicts and lists of arrays, as ``init_pna``, ``init_lm_params``
+and ``init_deepfm`` build them) becomes the port's module with the same
+values.  Leaves may be bfloat16 (``ml_dtypes``' numpy type); they are
+widened to float32 on the way, which is exact.
 """
 
 from __future__ import annotations
@@ -100,6 +102,8 @@ def _load_tree(module: torch.nn.Module, tree) -> None:
             if name not in params:
                 raise KeyError(f"{name}: no such parameter in {type(module).__name__}")
             arr = np.array(node)  # a writable copy: torch shares the buffer
+            if arr.dtype.name == "bfloat16":
+                arr = arr.astype(np.float32)
             p = params[name]
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: tree {arr.shape} against module {tuple(p.shape)}")
@@ -119,5 +123,51 @@ def gnn_params_from_numpy(kind: str, tree: dict, cfg, *, device="cuda") -> torch
     ``tree``'s values (e.g. ``jax.tree.map(np.asarray, init_pna(...))``); its
     input and output widths are read off the tree."""
     module = _gnn_module(kind, tree, cfg, device)
+    _load_tree(module, tree)
+    return module
+
+
+def _unstack(stacked) -> list:
+    """A tree of ``[L, ...]`` leaves -> L trees of one layer each."""
+    def take(node, i):
+        if isinstance(node, dict):
+            return {k: take(v, i) for k, v in node.items()}
+        return np.asarray(node)[i]
+
+    leaf = stacked
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return [take(stacked, i) for i in range(np.shape(leaf)[0])]
+
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def lm_params_from_numpy(tree: dict, cfg, *, device="cuda") -> torch.nn.Module:
+    """The port's ``Transformer`` for ``cfg`` on ``device``, in the dtype of
+    the tree's embedding, holding the parameter ``tree`` of
+    ``init_lm_params`` (e.g. ``jax.tree.map(np.asarray, params)``): its
+    ``dense_layers``/``moe_layers`` stacks ``[L, ...]`` are unstacked into the
+    module lists; every leaf is checked by shape, and a missing or extra leaf
+    raises."""
+    from repro_torch.models.transformer import Transformer
+
+    dtype = _DTYPES[np.asarray(tree["embed"]).dtype.name]
+    tree = dict(tree)
+    for key in ("dense_layers", "moe_layers"):
+        if key in tree:
+            tree[key] = _unstack(tree[key])
+    module = Transformer(cfg, generator=torch.Generator().manual_seed(0), device=device,
+                         dtype=dtype)
+    _load_tree(module, tree)
+    return module
+
+
+def recsys_params_from_numpy(tree: dict, cfg, *, device="cuda") -> torch.nn.Module:
+    """The port's ``DeepFM`` for ``cfg`` on ``device`` holding the parameter
+    ``tree`` of ``init_deepfm``, leaf by leaf as above."""
+    from repro_torch.models.recsys import DeepFM
+
+    module = DeepFM(cfg, generator=torch.Generator().manual_seed(0), device=device)
     _load_tree(module, tree)
     return module

@@ -21,6 +21,10 @@ counted and timed in one place (``CollectiveStats``):
 
 ``partition_mesh(1)`` outside a launched rank is a legal one-rank mesh; the
 engine takes its dense path for it.
+
+The module also keeps the reference's parameter rule tables
+(``lm_param_specs``, ``gnn_param_specs``, ``recsys_param_specs``) as data:
+parameter name -> mesh-axis tuple.
 """
 
 from __future__ import annotations
@@ -192,3 +196,91 @@ def _check_device(dev: torch.device) -> None:
         raise RuntimeError(
             "a CUDA mesh was requested but CUDA is not available; pass device='cpu'"
         )
+
+
+# ---------------------------------------------------------------------------
+# parameter spec rule tables (``repro.dist.sharding``'s, as data)
+# ---------------------------------------------------------------------------
+#
+# Each maps a module's parameter names to a tuple of mesh axes, one entry a
+# dimension: ``MODEL`` (the tensor/expert-parallel axis), ``FSDP`` (the
+# batch axis parameters are sharded over, named ``"data"`` as in the
+# reference) or None.  They are the reference's tables: a rule gives the
+# spec of a leaf's trailing dims, and leading dims pad with None.  The port
+# holds a layer stack as a module list, so its leaves lack the reference's
+# leading layer axis, and their specs lack its None.  A leaf with no rule
+# raises, so a new parameter cannot fall back to replication unnoticed.
+# Nothing in the port shards a model by them yet.
+
+FSDP = "data"
+MODEL = "model"
+_REPLICATED = ()
+_LM_RULES: dict[str, tuple] = {
+    # embeddings / output head: vocab on model so CE logits stay distributed
+    "embed": (MODEL, FSDP),
+    "head": (FSDP, MODEL),
+    # column-parallel projections (out dim on model, in dim FSDP-sharded)
+    "wq": (FSDP, MODEL),
+    "wk": (FSDP, MODEL),
+    "wv": (FSDP, MODEL),
+    "w_uq": (FSDP, MODEL),
+    "w_uk": (FSDP, MODEL),
+    "w_uv": (FSDP, MODEL),
+    "w_dq": (FSDP, MODEL),
+    "w_dkv": (FSDP, MODEL),
+    "w_gate": (FSDP, MODEL),
+    "w_up": (FSDP, MODEL),
+    # row-parallel projections (in dim on model so the matmul reduces there)
+    "wo": (MODEL, FSDP),
+    "w_down": (MODEL, FSDP),
+    # MoE expert stacks [E, in, out]: expert-parallel over model
+    "we_gate": (MODEL, FSDP, None),
+    "we_up": (MODEL, FSDP, None),
+    "we_down": (MODEL, None, FSDP),
+    # small / vector leaves
+    "w_kr": (FSDP, None),
+    "router": (FSDP, None),
+    "router_bias": _REPLICATED,
+    "proj": (FSDP, MODEL),
+    "attn_norm": _REPLICATED,
+    "ffn_norm": _REPLICATED,
+    "final_norm": _REPLICATED,
+    "q_norm": _REPLICATED,
+    "kv_norm": _REPLICATED,
+    "norm": _REPLICATED,
+}
+
+
+def _leaf_name(name: str) -> str:
+    """The last component of a parameter name that is not a list index."""
+    return next((p for p in reversed(name.split(".")) if not p.isdigit()), "")
+
+
+def lm_param_specs(model: torch.nn.Module) -> dict:
+    """Parameter name -> axis tuple for an LM (raises on a leaf with no rule)."""
+    out = {}
+    for name, p in model.named_parameters():
+        leaf = _leaf_name(name)
+        if leaf not in _LM_RULES:
+            raise KeyError(f"no sharding rule for parameter leaf {leaf!r}")
+        base = _LM_RULES[leaf]
+        out[name] = (None,) * max(0, p.dim() - len(base)) + base
+    return out
+
+
+def gnn_param_specs(model: torch.nn.Module) -> dict:
+    """GNN parameters are small MLPs: replicate, shard the graph data instead."""
+    return {name: _REPLICATED for name, _ in model.named_parameters()}
+
+
+def recsys_param_specs(model: torch.nn.Module) -> dict:
+    """DeepFM: embedding-table vocab rows over model; MLPs replicated."""
+    out = {}
+    for name, p in model.named_parameters():
+        if name.split(".")[0] in ("tables", "first_order") and p.dim() >= 2:
+            spec = [None] * p.dim()
+            spec[-2] = MODEL  # [F, V, D] -> the vocab axis
+            out[name] = tuple(spec)
+        else:
+            out[name] = _REPLICATED
+    return out

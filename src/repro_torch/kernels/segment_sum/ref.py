@@ -15,15 +15,15 @@ def reference_segment_sum(
     vals: torch.Tensor,  # [E, D]
     n_segments: int,
 ) -> torch.Tensor:
-    """``out[n] = sum(vals[ids == n])`` as float32 ``[n_segments, D]``.
+    """``out[n] = sum(vals[ids == n])`` as float32 ``[n_segments, D]``
+    (float64 for float64 values, the sums a float64 oracle needs).
 
     Ids outside ``[0, n_segments)`` are dropped, as ``jax.ops.segment_sum``
     drops them: they are sent to one spare row that is cut off.
     """
     ids = ids.to(torch.int64)
     spare = torch.where((ids >= 0) & (ids < n_segments), ids, n_segments)
-    out = torch.zeros(
-        (n_segments + 1, vals.shape[1]), dtype=torch.float32, device=vals.device
-    )
-    out.index_add_(0, spare, vals.to(torch.float32))
+    dtype = torch.float64 if vals.dtype == torch.float64 else torch.float32
+    out = torch.zeros((n_segments + 1, vals.shape[1]), dtype=dtype, device=vals.device)
+    out.index_add_(0, spare, vals.to(dtype))
     return out[:n_segments]

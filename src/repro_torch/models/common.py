@@ -25,13 +25,26 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torc
     return x * inv * scale
 
 
+def model_device(device) -> torch.device:
+    """The device a model is built on: the card unless the caller asks for
+    the CPU; a CUDA request without CUDA raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "a model on CUDA was requested but CUDA is not available; pass device='cpu'"
+        )
+    return device
+
+
 def init_dense(
     generator: torch.Generator | None, d_in: int, d_out: int, dtype=torch.bfloat16
 ) -> torch.Tensor:
     """``[d_in, d_out]`` normal weights scaled by ``1/sqrt(d_in)``, drawn in
-    float32 on the CPU from ``generator`` and cast to ``dtype``."""
+    float32 from ``generator`` on its device (the CPU when it is None) and
+    cast to ``dtype``."""
     scale = 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32)
+    device = generator.device if generator is not None else None
+    w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32, device=device)
     return (w * scale).to(dtype)
 
 
@@ -69,3 +82,11 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *, z_loss: fl
     if z_loss:
         loss = loss + z_loss * torch.mean(lse**2)
     return loss
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(values, indices)`` of the k largest along the last axis, ties to
+    the lower index, as ``jax.lax.top_k`` (``torch.topk`` makes no such
+    promise): a stable descending sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]

@@ -22,9 +22,9 @@ from torch import nn
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.kernels.segment_sum import segment_sum
-from repro_torch.models.common import init_dense
+from repro_torch.models.common import init_dense, model_device
 from repro_torch.models.gnn import e3
-from repro_torch.models.gnn.message_passing import MLP, _sum, as_sorted_edges, model_device
+from repro_torch.models.gnn.message_passing import MLP, _sum, as_sorted_edges
 
 #: the l of each of the 9 real-SH slots
 L_OF_SLOT = (0, 1, 1, 1, 2, 2, 2, 2, 2)

@@ -13,11 +13,11 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import GNNConfig
+from repro_torch.models.common import model_device
 from repro_torch.models.gnn.message_passing import (
     MLP,
     as_sorted_edges,
     layer_norm,
-    model_device,
     segment_reduce,
 )
 

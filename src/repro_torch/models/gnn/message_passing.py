@@ -191,14 +191,3 @@ def layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     m = x.mean(-1, keepdim=True)
     v = x.var(-1, keepdim=True, unbiased=False)
     return (x - m) * torch.rsqrt(v + eps)
-
-
-def model_device(device) -> torch.device:
-    """The device a model is built on: the card unless the caller asks for
-    the CPU; a CUDA request without CUDA raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "a model on CUDA was requested but CUDA is not available; pass device='cpu'"
-        )
-    return device

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import GNNConfig
+from repro_torch.models.common import model_device
 from repro_torch.models.gnn.message_passing import (
     MLP,
     SortedEdges,
@@ -25,7 +26,6 @@ from repro_torch.models.gnn.message_passing import (
     as_sorted_edges,
     degrees,
     layer_norm,
-    model_device,
     segment_reduce,
 )
 

@@ -24,8 +24,13 @@ ranks (``repro_torch.dist.run_ranks``) share the card over gloo, or run on
 two cards over NCCL where two are visible; state and every counter equal
 the dense engine's on the card (PageRank state to rtol 1e-5).  GNN models
 (reduced configs): node outputs within 2e-4 and energies within 1e-5 of
-their largest magnitude, PNA grads at rtol 1e-3 / atol 1e-5, halo PNA on
-two ranks within 2e-4 of the dense forward.
+their largest magnitude, PNA grads (float32 through the kernel) at rtol
+1e-3 / atol 1e-5 of the plain version's float64 grads, halo PNA on two
+ranks within 2e-4 of the dense forward.  LM and recsys: GQA attention
+through the kernel against the plain paths at the flash tolerances above
+(float32 ``2e-5``, the reference's chunked-against-dense bound); the MoE
+combine bit-identical over two calls; the ragged embedding bag at D = 10
+per bag within ``1e-6`` of its sum of |rows| against float64.
 """
 
 import dataclasses
@@ -622,8 +627,11 @@ def test_gnn_forward_on_cuda_matches_torch_backend(cuda_device, name):
 
 @pytest.mark.cuda
 def test_pna_grads_through_the_kernel_match_the_plain_version(cuda_device):
-    """The autograd entry (kernel forward, gather backward) against the
-    plain version's, at rtol 1e-3, atol 1e-5."""
+    """The autograd entry (kernel forward, gather backward) in float32
+    against the plain version run in float64 on the same parameters and
+    inputs, at rtol 1e-3, atol 1e-5.  The float64 grads stand for the exact
+    ones: a float32 plain run would add by ``index_add_``'s atomics, in an
+    order that changes from run to run."""
     from repro_torch.configs import ARCHS
     from repro_torch.configs.registry import reduced_config
     from repro_torch.models.gnn import PNA
@@ -634,13 +642,15 @@ def test_pna_grads_through_the_kernel_match_the_plain_version(cuda_device):
     x = torch.as_tensor(rng.standard_normal((n, 12)).astype(np.float32), device=cuda_device)
     labels = torch.as_tensor(rng.integers(0, 5, n), device=cuda_device)
     grads = {}
-    for backend in ("cuda", "torch"):
-        model = PNA(cfg, 12, 5, generator=torch.Generator().manual_seed(1), device=cuda_device)
-        lg = model(x, src, dst, edge_mask=mask, backend=backend)
+    for backend, dtype in (("cuda", torch.float32), ("torch", torch.float64)):
+        model = PNA(cfg, 12, 5, generator=torch.Generator().manual_seed(1),
+                    device=cuda_device).to(dtype)
+        lg = model(x.to(dtype), src, dst, edge_mask=mask, backend=backend)
+        assert lg.dtype == dtype
         torch.nn.functional.cross_entropy(lg, labels).backward()
         grads[backend] = {k: p.grad for k, p in model.named_parameters()}
     for k, g in grads["cuda"].items():
-        torch.testing.assert_close(g, grads["torch"][k], rtol=1e-3, atol=1e-5, msg=k)
+        torch.testing.assert_close(g, grads["torch"][k].float(), rtol=1e-3, atol=1e-5, msg=k)
 
 
 def _halo_card_rank(plan, xs, seed) -> dict:
@@ -684,3 +694,99 @@ def test_halo_pna_on_two_ranks_of_one_card_matches_dense(cuda_device):
     np.testing.assert_allclose(flat[plan.perm], dense, atol=2e-4)
     for r in ranks:
         assert r["launches"] > 0 and r["calls"] == {"all_to_all": 2}
+
+
+# -- the LM and recsys stacks on the card -------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("width", ["reduced", "mid"])
+def test_gqa_forward_through_the_kernel_matches_the_plain_paths(cuda_device, width, window,
+                                                                dtype):
+    """``gqa_attend`` on the card (the flash kernel, counted; bfloat16 with
+    d % 8 == 0 takes the TMA/wgmma kernel) against the plain ``_sdpa`` path
+    and float32 ``attention_rows`` on the same rope'd q, k, v; and the whole
+    ``gqa_forward`` across backends."""
+    from repro_torch.configs.base import LMConfig
+    from repro_torch.models import attention as A
+
+    dims = {"reduced": (64, 4, 2, 16), "mid": (1024, 16, 4, 64)}[width]
+    d, h, hk, dh = dims
+    cfg = LMConfig(name="t", n_layers=1, d_model=d, n_heads=h, n_kv_heads=hk, d_head=dh,
+                   d_ff=4 * d, vocab=64, sliding_window=window)
+    p = A.GQAAttention(cfg, generator=torch.Generator().manual_seed(2), dtype=dtype).to(
+        cuda_device)
+    x = torch.randn((2, 700, d), generator=torch.Generator().manual_seed(3)).to(
+        cuda_device, dtype)
+    variant = variant_for(dh, dtype, True)
+    with torch.inference_mode():
+        q, k, v = A.gqa_qkv(p, cfg, x)
+        before = flash_fwd.variant_launches[variant]
+        out = A.gqa_attend(q, k, v, cfg)
+        torch.cuda.synchronize()
+        assert flash_fwd.variant_launches[variant] == before + 1
+        plain = A.gqa_attend(q, k, v, cfg, backend="torch")
+        assert flash_fwd.variant_launches[variant] == before + 1
+        ref = attention_rows(q, k, v, 0, q.shape[1], causal=True, window=window)
+        fwd = A.gqa_forward(p, cfg, x)
+        fwd_plain = A.gqa_forward(p, cfg, x, backend="torch")
+    assert out.dtype == dtype and out.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, plain, atol=2e-5, rtol=2e-5)
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+        torch.testing.assert_close(fwd, fwd_plain, atol=1e-4, rtol=1e-4)
+    else:
+        assert variant == "bfloat16-wgmma"
+        assert bf16_tolerance_ratio(out, ref) <= 1.0
+        torch.testing.assert_close(out.float(), plain.float(), atol=2e-2, rtol=2e-2)
+        scale = float(fwd_plain.float().abs().max())
+        assert float((fwd.float() - fwd_plain.float()).abs().max()) <= 2e-2 * max(1.0, scale)
+
+
+@pytest.mark.cuda
+def test_moe_combine_is_deterministic_on_the_card(cuda_device):
+    """Two calls of ``moe_ffn`` on the card give the same bits (the combine
+    gathers; nothing adds atomically), with capacity drops on the path."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models.moe import MoE, moe_ffn, route
+
+    cfg = MoEConfig(n_experts=8, top_k=2, d_ff_expert=256, capacity_factor=0.75)
+    p = MoE(512, cfg, generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    x = torch.randn((8192, 512), generator=torch.Generator().manual_seed(5)).to(
+        cuda_device, torch.bfloat16)
+    with torch.inference_mode():
+        y1, aux1, load1 = moe_ffn(p, cfg, x)
+        y2, aux2, load2 = moe_ffn(p, cfg, x)
+        assert not bool(route(p, cfg, x).kept().all())
+    assert torch.equal(y1, y2) and torch.equal(aux1, aux2) and torch.equal(load1, load2)
+    assert bool(torch.isfinite(y1.float()).all())
+
+
+@pytest.mark.cuda
+def test_embedding_bag_segment_on_the_kernel_at_d10(cuda_device):
+    """The ragged bag through the segment-sum kernel (counted) at DeepFM's
+    D = 10, bags of 0 to 40 ids in shuffled order, per bag within 1e-6 of
+    its sum of |rows| of a float64 sum; empty bags exactly 0."""
+    from repro_torch.models.recsys import embedding_bag_segment
+
+    rng = np.random.default_rng(6)
+    table = torch.as_tensor(rng.standard_normal((100_000, 10)).astype(np.float32),
+                            device=cuda_device)
+    lengths = rng.integers(0, 41, 20_000)
+    bag_ids = np.repeat(np.arange(lengths.size), lengths)
+    perm = rng.permutation(bag_ids.size)
+    bags = torch.as_tensor(bag_ids[perm].astype(np.int32), device=cuda_device)
+    flat = torch.as_tensor(rng.integers(0, 100_000, bag_ids.size), device=cuda_device)
+    before = segment_sum_sorted.launches
+    out = embedding_bag_segment(table, flat, bags, lengths.size)
+    torch.cuda.synchronize()
+    assert segment_sum_sorted.launches > before
+    rows = table.double()[flat]
+    exact = torch.zeros((lengths.size, 10), dtype=torch.float64, device=cuda_device)
+    exact.index_add_(0, bags.long(), rows)
+    scale = torch.zeros_like(exact).index_add_(0, bags.long(), rows.abs())
+    assert out.dtype == torch.float32 and out.shape == (lengths.size, 10)
+    assert bool(((out.double() - exact).abs() <= 1e-6 * scale).all())
+    assert bool((out[torch.as_tensor(lengths == 0, device=cuda_device)] == 0).all())

@@ -180,3 +180,30 @@ def test_gnn_slice_modules_are_held_standalone():
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
+
+
+def test_lm_recsys_slice_modules_are_held_standalone():
+    """The LM and recsys slice's modules are among the files and modules the
+    checks above cover, and their entry points refuse CUDA without a card."""
+    names = {_module_name(p) for p in PORT_FILES if p != SMOKE}
+    for mod in (
+        "repro_torch.models.attention", "repro_torch.models.moe",
+        "repro_torch.models.transformer", "repro_torch.models.recsys",
+        "repro_torch.models.recsys.embedding", "repro_torch.models.recsys.deepfm",
+        "repro_torch.data.synthetic", "repro_torch.launch", "repro_torch.launch.steps",
+        "repro_torch.launch.serve",
+    ):
+        assert mod in names, mod
+    if torch.cuda.is_available():
+        return
+    from repro_torch.launch.steps import build_bundle
+    from repro_torch.models.recsys import DeepFM
+    from repro_torch.configs import ARCHS
+
+    for build in (
+        lambda: DeepFM(ARCHS["deepfm"].config),
+        lambda: build_bundle("deepfm", "serve_p99", reduced=True),
+        lambda: build_bundle("mixtral-8x22b", "decode_32k", reduced=True),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
