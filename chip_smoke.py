@@ -58,10 +58,32 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 to 40 ids, on the segment-sum kernel at D = 10 (counted from
                 0), held per bag against float64 within 1e-6 of its sum of
                 |rows| and timed beside its bound and ``index_add_``.
-  6. graph   -- ``rmat_graph(22, 8, seed=42)`` (about 4.2 M vertices and
+  6. train   -- the training stack (``launch.train``, ``launch.steps``'
+                train kinds, ``optim``, ``ckpt``), each model at its
+                published config: TinyLlama-1.1B's train_4k (22 layers, d
+                2048, bfloat16, remat on, S = 4,096, the global batch cut
+                from 256 to 4) for 4 steps from --seed, timed by CUDA
+                events, its peak read and one more step profiled; gated on
+                step 1 against the same model in float32 on the ``torch``
+                backend (the loss, the gradient norm and attention's
+                gradient norm, read off the gradients the step hands to
+                AdamW), a control with attention's gradient cut must fail;
+                no flash launch (the kernel has no backward).  MeshGraphNet
+                (15 layers, d 128) on minibatch_lg as the bundle sizes it
+                (169,984 nodes, 168,960 edges, 602 features) for 20 steps
+                through ``train()``, checkpointed every 10, its segment-sum
+                launches counted from 0 (every sum and every gather's
+                gradient); a run that crashes at step 15 and one that
+                resumes from step 10 must equal the straight run bit for
+                bit; the same steps twice with plain ``index_select``
+                gathers report how many tensors their atomic backward
+                moves.  DeepFM's train_batch (65,536 rows, 39 x 1 M x 10) for
+                5 steps.  PNA at ogb_products is reckoned, not run: its
+                backward keeps more than the card holds.
+  7. graph   -- ``rmat_graph(22, 8, seed=42)`` (about 4.2 M vertices and
                 68 M directed edges, SNAP soc-LiveJournal1's size) split by
                 ``bfs_grow_partition(..., 8, seed=1)``; host build times.
-  7. gnn     -- the GNN stack (``repro_torch.models.gnn``), every segment
+  8. gnn     -- the GNN stack (``repro_torch.models.gnn``), every segment
                 sum on the kernel, each model's launches counted from 0:
                 PNA at its full config (4 layers, d 75, 4 aggregators x 3
                 scalers) full-batch at ogbn-products' size (N = 2,449,029,
@@ -76,13 +98,13 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 ``torch`` and invariant under two rotations; MeshGraphNet
                 (15 layers, d 128) on one minibatch_lg batch (1,024 seeds,
                 fanouts 15 and 10, 602 features) sampled from the graph of
-                phase 6; and halo PNA on 2 ranks sharing the card over
+                phase 7; and halo PNA on 2 ranks sharing the card over
                 gloo, on a scale-16 R-MAT graph split in two, against the
                 dense forward, with one ``all_to_all`` a layer.
-  8. segment_sum_livj -- ``sorted_segment_sum`` over that graph's sorted
+  9. segment_sum_livj -- ``sorted_segment_sum`` over that graph's sorted
                 destinations (an R-MAT in-degree spread, D = 128), held and
                 timed as in phase 2.
-  9. kernel  -- the CUDA relax kernel (every template instantiation the
+  10. kernel  -- the CUDA relax kernel (every template instantiation the
                 main path runs) held against its plain PyTorch version at the
                 main path's shapes (the local and the remote layout) and at
                 the degenerate shapes (no edges, n < 8, one edge), and
@@ -93,20 +115,20 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 bound and one ``scatter_reduce`` call.  Then
                 ``relax_phases``: a diagnosis build of the kernel
                 (``RELAX_PHASE_CLOCKS``) splits a block's cycles by phase.
-  10. oracle  -- BFS, SSSP, WCC and PageRank on a small graph on the card,
+  11. oracle  -- BFS, SSSP, WCC and PageRank on a small graph on the card,
                 held against the port's numpy oracles.
-  11. slice   -- the main path: BFS from 4 sources, WCC and 20 PageRank
+  12. slice   -- the main path: BFS from 4 sources, WCC and 20 PageRank
                 iterations through ``bsp.run_program`` on the ``cuda``
                 backend, with the kernel's launch counts set to 0 just
                 before and read just after.  Then the same runs on the
                 ``torch`` backend on the same card: state bit-identical for
                 BFS and WCC, allclose for PageRank, traces exact.  BFS
                 source 0 is held against the host BFS ``_bfs_hops``.
-  12. pipeline -- the BFS trace becomes the time function A, scaled to
+  13. pipeline -- the BFS trace becomes the time function A, scaled to
                 LIVJ's T_Min of 21 s; every placement strategy is billed at
                 delta = 60 s; ``predict_time_function`` gives the
                 metagraph's a-priori plan.
-  13. elastic -- the plan executed: ``ElasticBSPExecutor`` runs BFS from
+  14. elastic -- the plan executed: ``ElasticBSPExecutor`` runs BFS from
                 vertex 0 on LIVJ/8P, 8 supersteps per window, once per
                 placement strategy, each planned from the metagraph
                 prediction (in the trace's seconds) and re-planned online
@@ -123,7 +145,7 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 ``repartition=`` variant (on a cut graph where one
                 repartition pass over LIVJ/8P would take over 30 s), which
                 must move vertices.
-  14. serve  -- ``TraversalService`` answers 32 BFS queries (8 rows a
+  15. serve  -- ``TraversalService`` answers 16 BFS queries (8 rows a
                 batch, 8 supersteps a window): first all at t = 0 on all 8
                 VMs, which gives the highest rate mu it sustains, then Poisson
                 arrivals at 0.25 mu and 0.9 mu, elastic and static; launch
@@ -132,14 +154,14 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 ``torch`` backends' reports identical and every completed
                 query's state row too, the first 2 also equal to the host
                 BFS.
-  15. profile -- one more BFS traversal under ``torch.profiler``: the
+  16. profile -- one more BFS traversal under ``torch.profiler``: the
                 card's busy share, the kernels that take its time, and the
                 relax reduction's three kernels (partition, reduction,
                 fix-up) found by name.
-  16. relax_entries -- the two min-only entries (``bfs_relax_csr``,
+  17. relax_entries -- the two min-only entries (``bfs_relax_csr``,
                 ``bfs_relax``) at S=1 over the local edges, each against the
                 ``torch`` backend, timed beside the kernel alone.
-  17. mesh   -- the multi-GPU engine (``repro_torch.dist``): LIVJ/8P on D = 8
+  18. mesh   -- the multi-GPU engine (``repro_torch.dist``): LIVJ/8P on D = 8
                 ranks (one partition each) and D = 2 (four each), processes
                 that share the one card over gloo (NCCL refuses two ranks on
                 one card), which copies the CUDA payloads through the host.
@@ -269,8 +291,13 @@ from repro_torch.kernels.segment_sum import (  # noqa: E402
     sorted_segment_sum,
 )
 from repro_torch.kernels.segment_sum.kernel import segment_levels  # noqa: E402
+from repro_torch.ckpt import latest_step  # noqa: E402
+from repro_torch.data.synthetic import InputSpec, make_batch  # noqa: E402
 from repro_torch.launch.serve import serve_batch  # noqa: E402
+from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch.steps import build_bundle  # noqa: E402
+from repro_torch.launch.train import state_tree, train  # noqa: E402
+from repro_torch.models import attention as lm_attention  # noqa: E402
 from repro_torch.models.attention import gqa_attend, gqa_qkv  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.models.gnn import (  # noqa: E402
@@ -278,6 +305,7 @@ from repro_torch.models.gnn import (  # noqa: E402
     PNA,
     DimeNet,
     MeshGraphNet,
+    SortedEdges,
     build_triplets,
     e3,
     sort_edges,
@@ -294,7 +322,9 @@ from repro_torch.models.transformer import (  # noqa: E402
     lm_decode_step,
     lm_forward,
     lm_hidden,
+    lm_loss_and_stats,
 )
+from repro_torch.optim.adamw import global_norm  # noqa: E402
 from repro_torch.models.transformer import _logits as lm_logits  # noqa: E402
 from repro_torch.serve import ServiceConfig, TraversalService, poisson_trace  # noqa: E402
 from repro_torch.serve.batcher import MicroBatcher  # noqa: E402
@@ -325,8 +355,8 @@ MUTATION_INSERTS = 4096
 #: share their partition, so random inserts would move none of them
 REPARTITION_CUT_SCALE, REPARTITION_MAX_S, REPARTITION_CANDIDATES = 16, 30.0, 16384
 #: the serving path's depth (queries a run) is cut to keep the whole script
-#: near its time limit
-SERVE_QUERIES, SERVE_BATCH = 32, 8
+#: near its time limit (32 until the train phase came, which took its time)
+SERVE_QUERIES, SERVE_BATCH = 16, 8
 #: completed serving queries whose state rows are also held against the host
 #: BFS (every completed row is held against the ``torch`` backend's)
 SERVE_HOST_CHECKS = 2
@@ -454,6 +484,30 @@ LM_REPLAY_S = 64
 #: SEG_REL_TOL of its sum of |rows| against float64.
 RECSYS_CHECK_ROWS, RECSYS_SCORE_TOL = 4096, 1e-5
 RECSYS_BAGS, RECSYS_BAG_MAX = 262_144, 40
+#: the train phase.  TinyLlama-1.1B's train_4k at its published widths and
+#: dtype (bfloat16, remat on, S = 4,096), the global batch cut from 256 to
+#: TRAIN_LM_BATCH sequences, TRAIN_LM_STEPS steps from --seed.  The gate:
+#: step 1's loss, global gradient norm and the attention projections'
+#: gradient norm (every layer's wq, wk, wv; read off the gradients the step
+#: hands to ``adamw_update``), against the same model's values on the same
+#: batch in float32 on the ``torch`` backend (one sequence at a time, the
+#: gradients averaged), each within TRAIN_GATE_RTOL of the float32 value
+#: (measured 5.3e-6, 2.9e-4 and 2.9e-4 on an H100, about a tenth of each
+#: bound); the control, attention with its gradient cut (q, k, v detached:
+#: what a forward-only kernel would do without the entry's refusal), must
+#: fail it (measured: gnorm 0.72 off, attention's 1.0).
+TRAIN_LM_ARCH, TRAIN_LM_BATCH, TRAIN_LM_STEPS = "tinyllama-1.1b", 4, 4
+TRAIN_GATE_RTOL = {"loss": 5e-5, "gnorm": 3e-3, "attn_gnorm": 3e-3}
+#: MeshGraphNet (15 layers, d 128) on minibatch_lg as launch/steps.py sizes
+#: it, TRAIN_GNN_STEPS steps with a checkpoint every TRAIN_GNN_CKPT; then a
+#: run that crashes at step TRAIN_GNN_CRASH and one that resumes from its
+#: checkpoint: losses and final state bit for bit those of the straight run
+TRAIN_GNN = ("meshgraphnet", "minibatch_lg")
+TRAIN_GNN_STEPS, TRAIN_GNN_CKPT, TRAIN_GNN_CRASH = 20, 10, 15
+#: the atomic-order probe's depth (two runs with ``index_select`` gathers)
+TRAIN_GNN_PROBE_STEPS = 3
+#: DeepFM's train_batch at its published config
+TRAIN_RECSYS_STEPS = 5
 #: the template instantiations the main path runs, and the program each
 #: serves there: (variant, reduce, dtype, program name)
 MAIN_VARIANTS = (
@@ -1436,6 +1490,270 @@ def phase_recsys(device, seed: int) -> dict:
         "launches": bag["launches"],
         "bag": bag,
     }
+
+
+# -- training ------------------------------------------------------------------------
+
+
+def _attention_grads(named_grads) -> list:
+    return [g for n, g in named_grads
+            if n.rsplit(".", 1)[-1] in ("wq", "wk", "wv") and g is not None]
+
+
+def _lm_grad_stats(model, tokens, backend, micro: int) -> dict:
+    """The loss, the global gradient norm and the attention projections'
+    gradient norm of ``model`` on ``tokens``, ``micro`` sequences at a
+    time (the gradients averaged, float32)."""
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    acc, loss_sum = None, 0.0
+    b = tokens.shape[0]
+    for chunk in tokens.split(micro):
+        loss, _ = lm_loss_and_stats(model, chunk, backend=backend)
+        grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+        w = chunk.shape[0] / b
+        grads = [None if g is None else g.to(torch.float32) * w for g in grads]
+        acc = grads if acc is None else [
+            a if g is None else (g if a is None else a + g) for a, g in zip(acc, grads)]
+        loss_sum += float(loss.detach()) * w
+        del loss, grads
+    attn = _attention_grads(zip((n for n, _ in named), acc))
+    return {"loss": loss_sum, "gnorm": float(global_norm(acc)),
+            "attn_gnorm": float(global_norm(attn)) if attn else 0.0}
+
+
+def _rel_off(got: dict, ref: dict) -> dict:
+    return {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in TRAIN_GATE_RTOL}
+
+
+def _train_lm(device, seed: int) -> dict:
+    """TinyLlama's train step at its published widths (see TRAIN_LM_*): the
+    float32 reference and the control on step 1's batch, then the steps
+    timed by CUDA events, step 1's gradients read for the gate."""
+    spec = ARCHS[TRAIN_LM_ARCH]
+    cfg = spec.config
+    shape = spec.shapes()["train_4k"]
+    _check(cfg.remat, "train: the published config trains without remat")
+    bundle = build_bundle(TRAIN_LM_ARCH, "train_4k", device=device)
+    t0 = time.perf_counter()
+    state = bundle.init_state_fn(seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = state["params"]
+    tokens_spec = {"tokens": InputSpec((TRAIN_LM_BATCH, shape.seq_len + 1), torch.int32)}
+    batches = [make_batch(tokens_spec, seed=seed, step=i, bounds=bundle.input_bounds,
+                          device=device) for i in range(TRAIN_LM_STEPS)]
+
+    # -- the float32 reference and the control, on step 1's batch --
+    tokens = batches[0]["tokens"]
+    model32 = copy.deepcopy(model).to(torch.float32)
+    ref = _lm_grad_stats(model32, tokens, "torch", micro=1)
+    del model32
+    torch.cuda.empty_cache()
+    real_attend = lm_attention.gqa_attend
+    lm_attention.gqa_attend = lambda q, k, v, cfg, backend=None: real_attend(
+        q.detach(), k.detach(), v.detach(), cfg, backend="torch")
+    try:
+        ctrl = _lm_grad_stats(model, tokens, None, micro=TRAIN_LM_BATCH)
+    finally:
+        lm_attention.gqa_attend = real_attend
+    torch.cuda.empty_cache()
+
+    # -- the steps, with the flash launch count at 0 just before --
+    seen = {}
+    real_update = train_steps.adamw_update
+
+    def reading_update(model, grads, opt, opt_cfg):
+        # step 1's gradients as the step hands them to the optimizer
+        seen["attn_gnorm"] = float(global_norm(_attention_grads(grads.items())))
+        return real_update(model, grads, opt, opt_cfg)
+
+    _zero_flash_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, step_ms = [], [], []
+    for i, b in enumerate(batches):
+        train_steps.adamw_update = reading_update if i == 0 else real_update
+        try:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = bundle.step_fn(state, b)
+            stop.record()
+            stop.synchronize()
+        finally:
+            train_steps.adamw_update = real_update
+        step_ms.append(start.elapsed_time(stop))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+    peak = torch.cuda.max_memory_allocated()
+    flash_launches = flash_fwd.launches
+    # -- end of the steps --
+    _check(flash_launches == 0, f"train lm: the flash kernel ran {flash_launches} times "
+                                "under grad")
+    _check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)), "train lm: not finite")
+    got = {"loss": losses[0], "gnorm": gnorms[0], "attn_gnorm": seen["attn_gnorm"]}
+    off, ctrl_off = _rel_off(got, ref), _rel_off(ctrl, ref)
+    _check(all(off[k] <= TRAIN_GATE_RTOL[k] for k in off),
+           f"train lm: bfloat16 step 1 off float32 by {off} (bound {TRAIN_GATE_RTOL})")
+    _check(any(ctrl_off[k] > TRAIN_GATE_RTOL[k] for k in ctrl_off),
+           f"train lm: the control (attention's gradient cut) passed the gate: {ctrl_off}")
+    profile = _profile(lambda: bundle.step_fn(state, batches[0]), "elementwise",
+                       "elementwise_ms")
+    ms = float(np.median(step_ms[1:]))
+    res = {
+        "arch": TRAIN_LM_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.d_head], "remat": cfg.remat,
+        "params": sum(p.numel() for p in model.parameters()), "init_s": init_s,
+        "batch": TRAIN_LM_BATCH, "s": shape.seq_len,
+        "cut": {"global_batch": [shape.global_batch, TRAIN_LM_BATCH]},
+        "losses": losses, "gnorms": gnorms, "step_ms_each": step_ms, "step_ms": ms,
+        "tokens_per_s": TRAIN_LM_BATCH * shape.seq_len / (ms / 1e3),
+        "peak_device_bytes": peak, "flash_launches": flash_launches,
+        "gate": {"float32_torch": ref, "bfloat16_step1": got, "off": off,
+                 "control_attention_grad_cut": ctrl, "control_off": ctrl_off,
+                 "rtol": TRAIN_GATE_RTOL},
+        "profile": profile,
+    }
+    del state, model, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def _state_equal(a: dict, b: dict) -> list:
+    """The names of the train-state tensors that differ in any bit."""
+    fa, fb = _flat_tree(state_tree(a)), _flat_tree(state_tree(b))
+    _check(fa.keys() == fb.keys(), "train: two states of different structure")
+    return [k for k in fa if not torch.equal(fa[k], fb[k])]
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _train_gnn(device, seed: int) -> dict:
+    """MeshGraphNet's train steps through ``train()`` with every sum (and
+    every gather's gradient) on the segment-sum kernel, counted; then a
+    crash and a restart held bit for bit against the straight run."""
+    arch, shape = TRAIN_GNN
+    kw = dict(steps=TRAIN_GNN_STEPS, reduced=False, ckpt_every=TRAIN_GNN_CKPT, seed=seed,
+              verbose=False, device=device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        straight, crashy = str(Path(tmp) / "straight"), str(Path(tmp) / "crashy")
+        torch.cuda.reset_peak_memory_stats()
+        # -- the straight run, with the launch count at 0 just before --
+        ref, launches = _counted(lambda: train(arch, shape, ckpt_dir=straight, **kw))
+        # -- end of the straight run --
+        peak = torch.cuda.max_memory_allocated()
+        losses = ref["losses"]
+        _check(launches > 0, "train gnn: the segment-sum kernel ran no time")
+        _check(all(np.isfinite(losses)) and np.mean(losses[-5:]) < np.mean(losses[:5]),
+               f"train gnn: the loss did not fall: {losses}")
+        crash = None
+        try:
+            train(arch, shape, ckpt_dir=crashy, crash_at=TRAIN_GNN_CRASH, **kw)
+        except RuntimeError as e:
+            crash = str(e)
+        _check(crash == f"injected crash at step {TRAIN_GNN_CRASH}"
+               and latest_step(crashy) == TRAIN_GNN_CKPT,
+               f"train gnn: the crash run ended with {crash!r} at {latest_step(crashy)}")
+        out = train(arch, shape, ckpt_dir=crashy, **kw)
+        diff = _state_equal(ref["final_state"], out["final_state"])
+        _check(out["losses"] == losses[TRAIN_GNN_CKPT:] and not diff,
+               f"train gnn: the restart differs from the straight run: losses "
+               f"{out['losses']} against {losses[TRAIN_GNN_CKPT:]}, tensors {diff[:5]}")
+        probe = _atomics_probe(arch, shape, kw)
+        model = ref["final_state"]["params"]
+        bundle = build_bundle(arch, shape, device=device)
+        from repro_torch.data.synthetic import graph_batch
+
+        batch = graph_batch(bundle.abstract_inputs, seed=seed, step=0,
+                            n_nodes=bundle.abstract_inputs["x"].shape[0], device=device)
+        profile = _profile(lambda: bundle.step_fn(ref["final_state"], batch))
+    cfg = ARCHS[arch].config
+    return {"arch": arch, "shape": shape, "layers": cfg.n_layers, "d_hidden": cfg.d_hidden,
+            "n_nodes": int(batch["x"].shape[0]), "n_edges": int(batch["edge_src"].shape[0]),
+            "d_feat": int(batch["x"].shape[1]),
+            "params": sum(p.numel() for p in model.parameters()),
+            "steps": TRAIN_GNN_STEPS, "losses": losses,
+            "step_ms": 1e3 * float(np.median(ref["step_s"][1:])),
+            "step_ms_each": [1e3 * t for t in ref["step_s"]],
+            "peak_device_bytes": peak, "launches": launches,
+            "launches_per_step": launches / TRAIN_GNN_STEPS,
+            "restart": {"checkpoint_at": TRAIN_GNN_CKPT, "crash_at": TRAIN_GNN_CRASH,
+                        "resumed_losses": out["losses"], "bit_exact": True},
+            "atomics_probe": probe, "profile": profile}
+
+
+def _atomics_probe(arch: str, shape: str, kw: dict) -> dict:
+    """Why the gathers' gradients run on the kernel: the same
+    TRAIN_GNN_PROBE_STEPS steps twice with the node-to-edge gathers as
+    plain ``index_select`` (whose backward, ``index_add_``, adds by
+    atomics), and the train-state tensors that differ between the two runs
+    (reported, not gated: an atomic order may happen to repeat)."""
+    kw = dict(kw, steps=TRAIN_GNN_PROBE_STEPS)
+    kw.pop("ckpt_every")
+    real = SortedEdges.gather_src, SortedEdges.gather_dst
+    SortedEdges.gather_src = lambda self, t, backend=None: t.index_select(0, self.src)
+    SortedEdges.gather_dst = lambda self, t, backend=None: t.index_select(0, self.dst_index)
+    try:
+        a, b = (train(arch, shape, **kw) for _ in range(2))
+    finally:
+        SortedEdges.gather_src, SortedEdges.gather_dst = real
+    return {"steps": TRAIN_GNN_PROBE_STEPS, "gathers": "index_select",
+            "tensors_differing": len(_state_equal(a["final_state"], b["final_state"])),
+            "losses": [a["losses"], b["losses"]]}
+
+
+def _train_recsys(device, seed: int) -> dict:
+    cfg = ARCHS["deepfm"].config
+    torch.cuda.reset_peak_memory_stats()
+    out = train("deepfm", "train_batch", steps=TRAIN_RECSYS_STEPS, reduced=False, seed=seed,
+                verbose=False, device=device)
+    peak = torch.cuda.max_memory_allocated()
+    _check(len(out["losses"]) == TRAIN_RECSYS_STEPS and all(np.isfinite(out["losses"])),
+           f"train recsys: {out['losses']}")
+    return {"arch": "deepfm", "shape": "train_batch",
+            "batch": ARCHS["deepfm"].shapes()["train_batch"].batch,
+            "config": {"fields": cfg.n_sparse, "rows": cfg.vocab_per_field,
+                       "dim": cfg.embed_dim},
+            "losses": out["losses"], "step_ms": 1e3 * float(np.median(out["step_s"][1:])),
+            "step_ms_each": [1e3 * t for t in out["step_s"]], "peak_device_bytes": peak}
+
+
+def _pna_products_reckoning() -> dict:
+    """Why PNA's train step at ogb_products does not run on one card: the
+    bytes autograd keeps for its backward, at least."""
+    cfg = ARCHS["pna"].config
+    shape = GRAPH_SHAPES["ogb_products"]
+    e = (shape.n_edges + 511) // 512 * 512
+    edge_tensor = e * cfg.d_hidden * 4  # one [E, d] float32 tensor
+    # per layer: the gathered message (read by m*m's backward), and max's
+    # and min's masked copies (kept for their tie-split backward)
+    kept = 3 * edge_tensor * cfg.n_layers
+    return {"E": e, "d_hidden": cfg.d_hidden, "layers": cfg.n_layers,
+            "edge_tensor_bytes": edge_tensor, "kept_bytes_at_least": kept,
+            "card_bytes": torch.cuda.get_device_properties(0).total_memory,
+            "runs": False}
+
+
+def phase_train(device, seed: int) -> dict:
+    """The training stack on the card (see the module docstring)."""
+    t0 = time.perf_counter()
+    line = {"lm": _train_lm(device, seed)}
+    line["gnn"] = _train_gnn(device, seed)
+    line["recsys"] = _train_recsys(device, seed)
+    line["pna_ogb_products"] = _pna_products_reckoning()
+    _check(line["pna_ogb_products"]["kept_bytes_at_least"]
+           > line["pna_ogb_products"]["card_bytes"],
+           "train: PNA at ogb_products would fit the card; run it")
+    line.update(launches=line["gnn"]["launches"], nvidia_smi=_nvidia_smi(),
+                phase_s=time.perf_counter() - t0)
+    return line
 
 
 def build_graph(scale: int, parts: int) -> tuple[object, dict]:
@@ -3077,7 +3395,7 @@ def phase_mesh(pg, runs: dict, bfs_trace, pred_tf, device, seed: int) -> dict:
 
 def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
                  seg_livj: dict, path_launches: dict, mesh_planes: list, gnn: dict,
-                 gnn_case: dict, lm: dict, recsys: dict) -> dict:
+                 gnn_case: dict, lm: dict, recsys: dict, train_line: dict) -> dict:
     """One entry per kernel the main path launched, with its numbers at the
     main path's own shape: the relax kernel's local closure reduction, the
     segment sum over uniform ids, the flash kernel at the Mixtral 32k
@@ -3089,9 +3407,11 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
     summed over its ranks), and the float32-min entry its times at one
     mesh rank's planes (``mesh_planes``); the segment-sum entry its
     launches on its own path and the gnn path (every model's run, the halo
-    ranks' summed) and the recsys path (the ragged bag, its case under
-    ``cases``); the flash entry its launches on the lm path (every GQA
-    layer's prefill) and each model's layer-0 case."""
+    ranks' summed), the recsys path (the ragged bag, its case under
+    ``cases``) and the train path (MeshGraphNet's straight run: every sum
+    and every gather's gradient); the flash entry its launches on the lm
+    path (every GQA layer's prefill) and each model's layer-0 case (the
+    train path launches it no time: it has no backward)."""
     entries = []
     for variant, _, _, prog in MAIN_VARIANTS:
         cases = checks[variant]
@@ -3139,7 +3459,8 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
             "replaces": replaces,
             "launches": launches,
             "launches_by_path": (
-                {"segment_sum": launches, "gnn": gnn["launches"], "recsys": recsys["launches"]}
+                {"segment_sum": launches, "gnn": gnn["launches"], "recsys": recsys["launches"],
+                 "train": train_line["launches"]}
                 if phase is seg else {"flash_attention": launches, "lm": lm["launches"]}),
             "max_abs_err": max(c["max_abs_err"] for c in [main, *more, *phase["small"]]),
             "ms": main["ms"],
@@ -3184,6 +3505,8 @@ def main(argv=None) -> int:
     _emit("lm", report["lm"])
     report["recsys"] = phase_recsys(device, args.seed)
     _emit("recsys", report["recsys"])
+    report["train"] = phase_train(device, args.seed)
+    _emit("train", report["train"])
     pg, report["graph"] = build_graph(args.scale, LIVJ_PARTS)
     _emit("graph", report["graph"])
     report["gnn"], gnn_case = phase_gnn(pg, device, args.seed, args.scale)
@@ -3218,7 +3541,7 @@ def main(argv=None) -> int:
         report["flash_attention"], report["segment_sum_livj"],
         {path: report[path]["variant_launches"] for path in ("elastic", "serve", "mesh")},
         report["mesh"]["kernel_planes"], report["gnn"], gnn_case, report["lm"],
-        report["recsys"],
+        report["recsys"], report["train"],
     )["kernels"]
     report["wall_s"] = time.perf_counter() - t_start
     report["phase_seconds"] = dict(PHASE_SECONDS)

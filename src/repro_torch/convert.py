@@ -4,10 +4,11 @@ the carried traversal state and the models' parameters.
 Everything here takes plain numpy arrays (never an object of the JAX
 package), so a graph built anywhere -- by ``repro``, by a loader, by a test
 -- becomes the port's ``PartitionedGraph`` with the same bytes, a window
-state pulled to the host resumes on the port's engine, and a parameter
-tree (nested dicts and lists of arrays, as ``init_pna``, ``init_lm_params``
-and ``init_deepfm`` build them) becomes the port's module with the same
-values.  Leaves may be bfloat16 (``ml_dtypes``' numpy type); they are
+state pulled to the host resumes on the port's engine, a parameter tree
+(nested dicts and lists of arrays, as ``init_pna``, ``init_lm_params`` and
+``init_deepfm`` build them) becomes the port's module with the same
+values, and a train state (parameters and AdamW moments) the port's train
+state.  Leaves may be bfloat16 (``ml_dtypes``' numpy type); they are
 widened to float32 on the way, which is exact.
 """
 
@@ -171,3 +172,54 @@ def recsys_params_from_numpy(tree: dict, cfg, *, device="cuda") -> torch.nn.Modu
     module = DeepFM(cfg, generator=torch.Generator().manual_seed(0), device=device)
     _load_tree(module, tree)
     return module
+
+
+_PARAMS_FROM_NUMPY = {
+    "gnn": lambda tree, cfg, device: gnn_params_from_numpy(cfg.kind, tree, cfg, device=device),
+    "lm": lambda tree, cfg, device: lm_params_from_numpy(tree, cfg, device=device),
+    "recsys": lambda tree, cfg, device: recsys_params_from_numpy(tree, cfg, device=device),
+}
+
+
+def _moments(family: str, tree: dict, cfg, device) -> dict:
+    """A moment tree (the parameter tree's layout) -> ``{parameter name:
+    tensor}`` in the tree's own dtype, laid out by the family's module."""
+    dtypes = {np.asarray(leaf).dtype.name for leaf in _leaves(tree)}
+    if len(dtypes) != 1:
+        raise ValueError(f"moments of mixed dtypes {sorted(dtypes)}")
+    dtype = _DTYPES[dtypes.pop()]
+    module = _PARAMS_FROM_NUMPY[family](tree, cfg, device)
+    return {n: p.detach().to(dtype) for n, p in module.named_parameters()}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def train_state_from_numpy(family: str, tree: dict, cfg, *, device="cuda") -> dict:
+    """The port's train state ``{"params": module, "opt": {"mu", "nu",
+    "count"}}`` on ``device`` from a JAX train state ``{"params", "opt":
+    {"mu", "nu", "count"}}`` as numpy (e.g. ``jax.tree.map(np.asarray,
+    state)``), ``family`` one of ``"gnn"``, ``"lm"``, ``"recsys"``.  The
+    moments keep their dtype and are keyed by the module's parameter names;
+    ``count`` is an int32 scalar."""
+    if family not in _PARAMS_FROM_NUMPY:
+        raise ValueError(f"unknown family {family!r}")
+    module = _PARAMS_FROM_NUMPY[family](tree["params"], cfg, device)
+    opt = tree["opt"]
+    return {
+        "params": module,
+        "opt": {
+            "mu": _moments(family, opt["mu"], cfg, device),
+            "nu": _moments(family, opt["nu"], cfg, device),
+            "count": torch.as_tensor(np.asarray(opt["count"]), dtype=torch.int32,
+                                     device=torch.device(device)),
+        },
+    }

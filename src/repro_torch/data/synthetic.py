@@ -1,12 +1,17 @@
 """Deterministic synthetic batches matching a bundle's abstract inputs
 (``repro.data.synthetic`` counterpart).
 
-A batch is a pure function of ``(seed, step)``, so a restarted run resumes
-mid-stream with no state.  Index inputs are drawn within valid ranges
-(vocab, node counts); graph edges form a ring plus random chords.  The
-draws come from numpy's ``default_rng`` where the reference uses
-``jax.random``, so the values differ from its own but follow the same
-recipe; ``graph_batch``'s edges are the reference's numpy draws, equal.
+A batch is a pure function of ``(seed, step)`` (and the device's kind),
+so a restarted run resumes mid-stream with no state.  Index inputs are
+drawn within valid ranges (vocab, node counts); graph edges form a ring
+plus random chords.  Index draws come from numpy's ``default_rng`` where
+the reference uses ``jax.random``, so the values differ from its own but
+follow the same recipe; ``graph_batch``'s edges are the reference's numpy
+draws, equal.  Float inputs (node features, positions) are drawn on the
+batch's device by a ``torch.Generator`` seeded from ``(seed, step,
+input)``: a full-size graph batch holds a hundred million of them, which
+the host would take seconds to draw each step.  The CPU's stream and a
+card's differ.
 """
 
 from __future__ import annotations
@@ -55,7 +60,10 @@ def make_batch(abstract_inputs: dict, *, seed: int, step: int, bounds: dict | No
             hi = bounds.get(name, _default_bound(name))
             arr = np.zeros(shape, np.int64) if shape == () else rng.integers(0, hi, shape)
         else:
-            arr = rng.standard_normal(shape)
+            gen = torch.Generator(device=device).manual_seed(
+                int(np.random.SeedSequence([seed, step, i]).generate_state(1)[0]))
+            out[name] = torch.randn(shape, generator=gen, device=device).to(dtype)
+            continue
         out[name] = torch.as_tensor(np.asarray(arr), device=device).to(dtype)
     return out
 

@@ -16,13 +16,16 @@ The JAX package drives every mesh device from one controller with
   halo     -- boundary-exchange plans for partitioned graphs (a static
               send-index table per shard pair) and ``halo_gather``, one
               ``all_to_all`` of the planned edge cut a GNN layer.
+  compression -- ``compressed_psum``: an int8-quantized sum over the mesh
+              with error feedback.
 
-The model-axis sharding rules of ``repro.dist.sharding`` (LM, GNN, recsys
-parameters) and ``repro.dist.compression`` come with the training slice.
+``sharding`` also keeps the reference's parameter rule tables (LM, GNN,
+recsys) as data.
 """
 
 from repro_torch.dist.sharding import CollectiveStats, PartitionMesh, partition_mesh
 from repro_torch.dist import halo
+from repro_torch.dist.compression import compressed_psum
 from repro_torch.dist.launch import (
     RankFailed,
     RankResults,
@@ -34,6 +37,7 @@ from repro_torch.dist.launch import (
 
 __all__ = [
     "halo",
+    "compressed_psum",
     "CollectiveStats",
     "PartitionMesh",
     "partition_mesh",

@@ -21,6 +21,16 @@ module by name, or from its file when the module is ``__main__``.
     each rank's exit code and the tail of its output.  The process group
     itself gets the same timeout, so a rank stuck in a collective whose peer
     died fails instead of hanging.
+  * **Start-up and teardown.**  A rank marks the moment it has joined the
+    group (``joined<r>``) and writes its result as soon as every rank has
+    passed the barrier after the target, before it leaves the group; it
+    then ends by ``os._exit``, so no interpreter finalization runs while
+    gloo's threads are alive.  A rank that dies before ``joined<r>`` (in
+    ``init_process_group``) restarts the whole launch, at most
+    ``START_RETRIES`` times (``RankResults.retries``); one that dies after
+    every result is written (in ``destroy_process_group``) leaves the
+    results good (``RankResults.teardown_aborts``).  A rank that fails in
+    between -- inside the target -- is never retried.
   * Each rank runs ``torch.set_num_threads(1)``: D ranks share the host's
     cores.
 
@@ -59,11 +69,20 @@ class RankFailed(RuntimeError):
 
 
 class RankResults(list):
-    """Each rank's return value, in rank order, plus how they ran."""
+    """Each rank's return value, in rank order, plus how they ran:
+    ``retries`` counts launches restarted after a rank died while joining
+    the group, ``teardown_aborts`` ranks that died leaving it after every
+    result was written."""
 
     backend: str
     devices: list
     seconds: float
+    retries: int = 0
+    teardown_aborts: int = 0
+
+
+#: launches restarted at most after a rank dies joining the process group
+START_RETRIES = 2
 
 
 def plan_ranks(n_ranks: int, device: str = "cuda") -> tuple[str, list[str]]:
@@ -99,6 +118,23 @@ def _tail(path: Path, n: int = 4000) -> str:
     return text[-n:]
 
 
+def launch_outcome(rcs: list, work: Path) -> str:
+    """What a launch whose ranks exited with ``rcs`` (None: still running)
+    amounts to, read off the markers in ``work``: ``"running"``, ``"done"``
+    (every result written, whatever the exit codes), ``"restart"`` (a rank
+    died before it joined the group) or ``"failed"``."""
+    n = len(rcs)
+    if all((work / f"result{r}.pkl").exists() for r in range(n)):
+        ended = all(rc is not None for rc in rcs)
+        return "done" if ended or any(rc not in (None, 0) for rc in rcs) else "running"
+    failed = [r for r, rc in enumerate(rcs) if rc not in (None, 0)]
+    if not failed:
+        return "running"
+    if all(not (work / f"joined{r}").exists() for r in failed):
+        return "restart"
+    return "failed"
+
+
 def run_ranks(
     target,
     n_ranks: int,
@@ -111,13 +147,51 @@ def run_ranks(
     """Run ``target(*args, **kwargs)`` on ``n_ranks`` mesh ranks (see the
     module docstring); returns each rank's result in rank order."""
     backend, devices = plan_ranks(n_ranks, device)
-    work = Path(tempfile.mkdtemp(prefix="repro_torch_ranks_"))
-    procs: list[subprocess.Popen] = []
     t0 = time.perf_counter()
+    deadline = time.monotonic() + float(timeout)
+    retries = 0
+    while True:
+        work = Path(tempfile.mkdtemp(prefix="repro_torch_ranks_"))
+        try:
+            outcome, rcs = _launch_once(work, target, int(n_ranks), backend, devices,
+                                        float(timeout), deadline, args, kwargs)
+            if outcome == "restart" and retries < START_RETRIES:
+                retries += 1
+                continue
+            if outcome != "done":
+                failed = [r for r, rc in enumerate(rcs) if rc not in (None, 0)]
+                why = (f"rank(s) {failed} exited non-zero" if failed
+                       else f"the launch passed its {timeout:.0f} s deadline")
+                if outcome == "restart":
+                    why += f" while joining the group, {retries + 1} times"
+                logs = "\n".join(
+                    f"--- rank {r} (exit {'killed' if rc is None else rc}) ---\n"
+                    f"{_tail(work / f'rank{r}.log')}"
+                    for r, rc in enumerate(rcs)
+                )
+                raise RankFailed(f"{n_ranks}-rank {backend} launch failed: {why}\n{logs}")
+            results = RankResults(
+                pickle.loads((work / f"result{r}.pkl").read_bytes()) for r in range(n_ranks)
+            )
+            results.backend = backend
+            results.devices = devices
+            results.seconds = time.perf_counter() - t0
+            results.retries = retries
+            results.teardown_aborts = sum(rc not in (None, 0) for rc in rcs)
+            return results
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+
+def _launch_once(work: Path, target, n_ranks: int, backend: str, devices: list,
+                 timeout: float, deadline: float, args, kwargs) -> tuple[str, list]:
+    """Start the ranks once in ``work`` and wait: ``(launch_outcome, exit
+    codes)``; every rank has ended when it returns."""
+    procs: list[subprocess.Popen] = []
     try:
         payload = {
-            "target": _target_spec(target), "n_ranks": int(n_ranks),
-            "backend": backend, "devices": devices, "timeout": float(timeout),
+            "target": _target_spec(target), "n_ranks": n_ranks,
+            "backend": backend, "devices": devices, "timeout": timeout,
         }
         (work / "payload.json").write_text(json.dumps(payload))
         # the arguments are unpickled after the target's module is imported,
@@ -127,46 +201,35 @@ def run_ranks(
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (_SRC, env.get("PYTHONPATH", "")) if p
         )
-        for r in range(int(n_ranks)):
+        for r in range(n_ranks):
             out = open(work / f"rank{r}.log", "wb")
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.dist._rank", str(work), str(r)],
                 stdout=out, stderr=subprocess.STDOUT, env=env,
             ))
             out.close()
-        deadline = time.monotonic() + float(timeout)
         while True:
             rcs = [p.poll() for p in procs]
-            failed = [r for r, rc in enumerate(rcs) if rc not in (None, 0)]
-            if failed or time.monotonic() > deadline:
-                for p in procs:
-                    if p.poll() is None:
-                        p.kill()
-                for p in procs:
-                    p.wait()
-                why = (f"rank(s) {failed} exited non-zero" if failed
-                       else f"the launch passed its {timeout:.0f} s deadline")
-                logs = "\n".join(
-                    f"--- rank {r} (exit {p.returncode}) ---\n{_tail(work / f'rank{r}.log')}"
-                    for r, p in enumerate(procs)
-                )
-                raise RankFailed(f"{n_ranks}-rank {backend} launch failed: {why}\n{logs}")
-            if all(rc == 0 for rc in rcs):
+            outcome = launch_outcome(rcs, work)
+            if outcome != "running":
+                break
+            if time.monotonic() > deadline:
+                done = all((work / f"result{r}.pkl").exists() for r in range(n_ranks))
+                outcome = "done" if done else "failed"
                 break
             time.sleep(0.02)
-        results = RankResults(
-            pickle.loads((work / f"result{r}.pkl").read_bytes()) for r in range(int(n_ranks))
-        )
-        results.backend = backend
-        results.devices = devices
-        results.seconds = time.perf_counter() - t0
-        return results
+        # a rank still running is stuck (in a collective, or leaving the
+        # group after every result is in): it ends now
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        return outcome, rcs
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        shutil.rmtree(work, ignore_errors=True)
 
 
 def _resolve_target(spec):
@@ -209,17 +272,23 @@ def _rank_main(work: str, rank: int) -> None:
         rank=rank, world_size=payload["n_ranks"],
         timeout=datetime.timedelta(seconds=payload["timeout"]),
     )
+    (work_dir / f"joined{rank}").touch()
     try:
         sys.path.insert(0, os.getcwd())
         target = _resolve_target(payload["target"])
         args, kwargs = pickle.loads((work_dir / "args.pkl").read_bytes())
         result = target(*args, **kwargs)
         dist.barrier()
+        tmp = work_dir / f"result{rank}.pkl.tmp"
+        tmp.write_bytes(pickle.dumps(result))
+        os.replace(tmp, work_dir / f"result{rank}.pkl")
     finally:
         dist.destroy_process_group()
-    tmp = work_dir / f"result{rank}.pkl.tmp"
-    tmp.write_bytes(pickle.dumps(result))
-    os.replace(tmp, work_dir / f"result{rank}.pkl")
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # no interpreter finalization: it would tear down torch's C++ state
+    # while the process group's threads may still be winding down
+    os._exit(0)
 
 
 # -- handing a large graph to the ranks ----------------------------------------

@@ -8,6 +8,8 @@ package modules of ``repro_torch``):
                       on a partition mesh (``--mesh N``)
   elastic_serving  -- traversal serving under Poisson load, elastic against
                       static capacity
+  train_lm         -- an LM trained on synthetic token streams with
+                      AdamW, checkpoints and restart (``--tiny``: smoke scale)
 
 Run one with ``python -m repro_torch.examples.<name> [--device cpu]``; every
 driver runs on the card unless asked for the CPU.

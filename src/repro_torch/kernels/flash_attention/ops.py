@@ -9,6 +9,11 @@
   * ``"torch"`` -- the plain version (``ref.reference_attention``), the
     only backend on the CPU.
 
+The kernel has no backward, as the TPU kernel has none: the ``cuda``
+backend raises when grad mode is on and q, k or v requires grad, so a
+gradient is never dropped without an error (a training caller takes the
+plain path, whose gradients flow).
+
 The TPU wrapper's block sizes and its pads of S and d are gone.  Keys at or
 past the true S are masked, so a ragged non-causal call computes what
 ``reference_attention`` computes (the TPU wrapper lets its zero-padded keys
@@ -50,6 +55,12 @@ def flash_attention(
         raise ValueError(f"flash_attention: window {window} < 1")
     if backend == "torch":
         return reference_attention(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel has no backward; call it under "
+            "torch.no_grad()/inference_mode(), or take the plain path (backend='torch') "
+            "for gradients"
+        )
     return flash_fwd(
         q.contiguous(), k.contiguous(), v.contiguous(), causal=causal, window=window
     )

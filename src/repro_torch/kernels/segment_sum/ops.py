@@ -17,6 +17,13 @@ D to the 128-wide lane are gone: the kernel takes any E, N and D.
 forward is ``sorted_segment_sum`` on either backend, its backward the
 gather ``grad_out[ids]`` (0 for a dropped id).  The JAX package has no
 backward kernel for the sum, so neither has the port.
+
+``gather_rows`` is its mirror image, the row gather ``table[index]`` whose
+gradient is a segment sum by ``index``: the kernel on a card, over the
+index sorted once (``order``).  ``index_select``'s own backward is
+``index_add_``, which adds by atomics on a card in an order that changes
+from run to run; through the kernel, a training step gives the same bits
+every time it runs.
 """
 
 from __future__ import annotations
@@ -103,3 +110,44 @@ def segment_sum(
     flat = vals.reshape(vals.shape[0], math.prod(tail))
     out = _SegmentSum.apply(ids, flat, int(n_segments), bool(sorted_ids), backend)
     return out.reshape((int(n_segments), *tail))
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table[index]`` forward; ``sorted_segment_sum`` backward."""
+
+    @staticmethod
+    def forward(ctx, table, index, order, backend):
+        ctx.save_for_backward(index, order)
+        ctx.n_rows = table.shape[0]
+        ctx.table_dtype = table.dtype
+        ctx.backend = backend
+        return table.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        index, order = ctx.saved_tensors
+        if order is not None:
+            index, grad_out = index[order], grad_out.index_select(0, order)
+        tail = grad_out.shape[1:]
+        flat = grad_out.reshape(grad_out.shape[0], math.prod(tail))
+        grad = sorted_segment_sum(index, flat, ctx.n_rows, assume_sorted=True,
+                                  backend=ctx.backend)
+        return grad.reshape((ctx.n_rows, *tail)).to(ctx.table_dtype), None, None, None
+
+
+def gather_rows(
+    table: torch.Tensor,  # [N, ...]
+    index: torch.Tensor,  # [E] int, in [0, N)
+    *,
+    order: torch.Tensor | None = None,  # stable argsort of index; None: index ascends
+    backend: str | None = None,
+) -> torch.Tensor:
+    """``table.index_select(0, index)``, with the segment sum of the
+    gradient's rows by ``index`` (``backend`` as ``sorted_segment_sum``) as
+    its gradient: ``index`` must ascend, or ``order`` sort it."""
+    if index.dim() != 1 or table.dim() < 1:
+        raise ValueError(
+            f"gather_rows: table {tuple(table.shape)} and index {tuple(index.shape)} "
+            "must be [N, ...] and [E]"
+        )
+    return _GatherRows.apply(table, index, order, backend)

@@ -5,17 +5,23 @@ Parameters are ``nn.Module``s holding the reference's leaves by name
 (``wq``, ``wk``, ``wv``, ``wo``; MLA's ``w_dq`` ... ``wo``), in its
 ``[d_in, d_out]`` layout.  Two call modes, as in the reference:
 
-  * full sequence (prefill): causal masking, positions 0..S-1.  GQA on a
-    card (``backend`` None or ``"cuda"`` on CUDA tensors) runs the
-    hand-written CUDA flash kernel (``kernels.flash_attention``): causal,
-    the config's window, GQA, scale ``1/sqrt(d_head)``, where the kernel
-    takes the head dim (``d_head <= 128``).  The ``torch`` backend, and the
-    CPU, run the reference's plain paths, kept as the kernel's oracle:
+  * full sequence (train / prefill): causal masking, positions 0..S-1.
+    GQA prefill on a card (``backend`` None or ``"cuda"`` on CUDA tensors,
+    no gradient asked for) runs the hand-written CUDA flash kernel
+    (``kernels.flash_attention``): causal, the config's window, GQA, scale
+    ``1/sqrt(d_head)``, where the kernel takes the head dim
+    (``d_head <= 128``).  The kernel has no backward: where a gradient is
+    asked for, ``backend=None`` takes the plain paths, as the reference
+    trains, and ``"cuda"`` raises.  The ``torch`` backend, and the CPU,
+    run the reference's plain paths, kept as the kernel's oracle:
     ``_sdpa`` (the scores rounded to the inputs' dtype before the float32
     softmax, the probabilities cast back, as the reference does) and, at
     ``s >= CHUNKED_ATTN_THRESHOLD`` with ``s % _ATTN_CHUNK == 0``, the
     streaming-softmax ``_chunked_sdpa``.  Both thresholds are module
-    attributes, read at call time.
+    attributes, read at call time.  Under grad every chunk body of
+    ``_chunked_sdpa`` and of MLA's ``_mla_chunked`` is checkpointed, as
+    the reference's ``jax.checkpoint`` does: the backward recomputes a
+    chunk's scores instead of keeping every chunk's float32 scores.
   * decode: one new token against a fixed-size cache, written in place at
     ``pos`` (GQA: at ``pos mod T``, a ring buffer under a sliding window).
 
@@ -31,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels.build import validate_backend
@@ -53,6 +60,18 @@ def _scale(d: int) -> float:
 
 def _use_chunked(s: int) -> bool:
     return s >= CHUNKED_ATTN_THRESHOLD and s % _ATTN_CHUNK == 0
+
+
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _chunk_step(body, *args):
+    """``body(*args)``, checkpointed where a gradient is asked for (the
+    backward then recomputes it from its inputs)."""
+    if _wants_grad(*args):
+        return checkpoint(body, *args, use_reentrant=False)
+    return body(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -106,12 +125,8 @@ def _chunked_sdpa(q, k, v, scale: float, window: int | None):
     c = min(_ATTN_CHUNK, s)
     qr = q.reshape(b, s, hk, g, dh)
     q_pos = torch.arange(s, device=q.device)
-    m = torch.full((b, hk, g, s), _NEG, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, hk, g, s), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hk, g, s, dh), dtype=torch.float32, device=q.device)
-    for j in range(s // c):
-        kj, vj = k[:, j * c:(j + 1) * c], v[:, j * c:(j + 1) * c]
-        k_pos = j * c + torch.arange(c, device=q.device)
+
+    def body(m, l, acc, qr, kj, vj, k_pos):
         scores = torch.einsum("bskgd,btkd->bkgst", qr, kj).to(torch.float32) * scale
         mask = k_pos[None, :] <= q_pos[:, None]
         if window is not None:
@@ -125,7 +140,15 @@ def _chunked_sdpa(q, k, v, scale: float, window: int | None):
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum(
             "bkgst,btkd->bkgsd", p, vj.to(torch.float32))
-        m = m_new
+        return m_new, l, acc
+
+    m = torch.full((b, hk, g, s), _NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hk, g, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hk, g, s, dh), dtype=torch.float32, device=q.device)
+    for j in range(s // c):
+        kj, vj = k[:, j * c:(j + 1) * c], v[:, j * c:(j + 1) * c]
+        k_pos = j * c + torch.arange(c, device=q.device)
+        m, l, acc = _chunk_step(body, m, l, acc, qr, kj, vj, k_pos)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
 
@@ -147,8 +170,11 @@ def gqa_qkv(p: GQAAttention, cfg: LMConfig, x: torch.Tensor, positions=None):
 
 def gqa_attend(q, k, v, cfg: LMConfig, *, backend: str | None = None) -> torch.Tensor:
     """Causal (and windowed) GQA over rope'd q, k, v: the CUDA flash kernel
-    on a card (which raises for a head dim it cannot take), else the plain
-    paths."""
+    on a card (which raises for a head dim it cannot take, and under grad),
+    else the plain paths; ``backend=None`` takes the plain paths where a
+    gradient is asked for."""
+    if backend is None and _wants_grad(q, k, v):
+        backend = "torch"
     backend = validate_backend(backend, q.device)
     s, dh = q.shape[1], q.shape[3]
     if backend == "cuda":
@@ -298,18 +324,14 @@ def _mla_chunked(p: MLAAttention, cfg: LMConfig, q_nope, q_rope, c, k_rope, scal
     w_uk = p.w_uk.reshape(m.kv_lora_rank, h, m.qk_nope_dim)
     w_uv = p.w_uv.reshape(m.kv_lora_rank, h, m.v_head_dim)
     q_pos = torch.arange(s, device=c.device)
-    mx = torch.full((b, h, s), _NEG, dtype=torch.float32, device=c.device)
-    l = torch.zeros((b, h, s), dtype=torch.float32, device=c.device)
-    acc = torch.zeros((b, h, s, m.v_head_dim), dtype=torch.float32, device=c.device)
-    for j in range(s // ch):
-        c_j, kr_j = c[:, j * ch:(j + 1) * ch], k_rope[:, j * ch:(j + 1) * ch]
+
+    def body(mx, l, acc, q_nope, q_rope, c_j, kr_j, k_pos, w_uk, w_uv):
         k_nope_j = torch.einsum("btr,rhe->bthe", c_j, w_uk)
         v_j = torch.einsum("btr,rhe->bthe", c_j, w_uv)
         scores = (
             torch.einsum("bshe,bthe->bhst", q_nope, k_nope_j)
             + torch.einsum("bshe,bte->bhst", q_rope, kr_j)
         ).to(torch.float32) * scale
-        k_pos = j * ch + torch.arange(ch, device=c.device)
         mask = k_pos[None, :] <= q_pos[:, None]
         scores = torch.where(mask, scores, _NEG)
         m_new = torch.maximum(mx, scores.amax(dim=-1))
@@ -318,7 +340,16 @@ def _mla_chunked(p: MLAAttention, cfg: LMConfig, q_nope, q_rope, c, k_rope, scal
         l = l * corr + pr.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum(
             "bhst,bthe->bhse", pr, v_j.to(torch.float32))
-        mx = m_new
+        return m_new, l, acc
+
+    mx = torch.full((b, h, s), _NEG, dtype=torch.float32, device=c.device)
+    l = torch.zeros((b, h, s), dtype=torch.float32, device=c.device)
+    acc = torch.zeros((b, h, s, m.v_head_dim), dtype=torch.float32, device=c.device)
+    for j in range(s // ch):
+        c_j, kr_j = c[:, j * ch:(j + 1) * ch], k_rope[:, j * ch:(j + 1) * ch]
+        k_pos = j * ch + torch.arange(ch, device=c.device)
+        mx, l, acc = _chunk_step(body, mx, l, acc, q_nope, q_rope, c_j, kr_j, k_pos,
+                                 w_uk, w_uv)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(q_nope.dtype)
 

@@ -108,7 +108,7 @@ class DimeNet(nn.Module):
 
         h = self.embed_species[torch.clamp(species.long(), 0, 15)]
         m = self.embed_edge(torch.cat(
-            [h.index_select(0, edges.src), h.index_select(0, edges.dst_index), rbf], dim=-1))
+            [edges.gather_src(h, backend=backend), edges.gather_dst(h, backend=backend), rbf], dim=-1))
 
         # triplet geometry: angle between edge ji and edge kj at shared vertex j
         v_ji = r_vec.index_select(0, ji)

@@ -109,7 +109,7 @@ class MACE(nn.Module):
             radial = radial_l[:, :, l_of_slot]  # broadcast per-l weight to slots
             # A-basis: couple edge harmonics with neighbor features, radially
             # weighted, summed over neighbors: one kernel call over [E, 9C]
-            msg = couple(ylm[:, None, :], h.index_select(0, edges.src), paths) * radial
+            msg = couple(ylm[:, None, :], edges.gather_src(h, backend=backend), paths) * radial
             a = _sum(msg, edges, backend)  # [N, C, 9]
             # B-basis: correlation orders 1..3
             b1 = a

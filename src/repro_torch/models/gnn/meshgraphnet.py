@@ -56,7 +56,8 @@ class MeshGraphNet(nn.Module):
         e = layer_norm(self.edge_enc(edges.permute(e_feat)))
         for layer in self.layers:
             e = e + layer.edge(torch.cat(
-                [e, h.index_select(0, edges.src), h.index_select(0, edges.dst_index)], dim=-1))
+                [e, edges.gather_src(h, backend=backend), edges.gather_dst(h, backend=backend)],
+                dim=-1))
             agg = segment_reduce(e, edges, "sum", backend=backend)
             h = h + layer.node(torch.cat([h, agg], dim=-1))
         return self.decode(h)

@@ -12,7 +12,13 @@ runs over ascending ids:
     kernel on a card, its plain version on the CPU, a gather as its
     gradient;
   * ``max`` and ``min`` have no kernel: one ``torch.segment_reduce`` over
-    the sorted run lengths each.
+    the sorted run lengths each, whose gradient splits a tie evenly as the
+    reference's does (the kernel counts the ties);
+  * the node-to-edge gathers ``h[src]`` and ``h[dst]``
+    (``SortedEdges.gather_src``/``gather_dst``) take a segment sum through
+    the same kernel as their gradient (``kernels.segment_sum.gather_rows``),
+    not ``index_select``'s atomic ``index_add_``, so a train step gives the
+    same bits on every run.
 
 Only the summation order differs from the reference, so outputs keep its
 values within float32 rounding.  Masked edges contribute nothing and degree
@@ -25,12 +31,13 @@ drops them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.segment_sum import segment_sum
+from repro_torch.kernels.segment_sum import gather_rows, segment_sum, sorted_segment_sum
 from repro_torch.models.common import init_dense
 
 
@@ -61,6 +68,22 @@ class SortedEdges:
     def permute(self, edge_values: torch.Tensor) -> torch.Tensor:
         """Per-edge values in the caller's order -> destination order."""
         return edge_values.index_select(0, self.perm)
+
+    @functools.cached_property
+    def src_order(self) -> torch.Tensor:
+        """The stable argsort of ``src``: the order ``gather_src``'s
+        gradient sums in."""
+        return torch.argsort(self.src, stable=True)
+
+    def gather_src(self, table: torch.Tensor, *, backend: str | None = None) -> torch.Tensor:
+        """``table[src]`` (``[E, ...]``, destination order), its gradient
+        summed by source through the segment-sum kernel."""
+        return gather_rows(table, self.src, order=self.src_order, backend=backend)
+
+    def gather_dst(self, table: torch.Tensor, *, backend: str | None = None) -> torch.Tensor:
+        """``table[dst_index]``, its gradient summed by the ascending
+        destination through the segment-sum kernel."""
+        return gather_rows(table, self.dst_index, backend=backend)
 
 
 def sort_edges(
@@ -126,11 +149,40 @@ def segment_mean(
     return s / torch.clamp(c, min=1.0)[:, None]
 
 
-def _extremum(x: torch.Tensor, edges: SortedEdges, kind: str) -> torch.Tensor:
-    out = torch.segment_reduce(
-        x[: edges.n_valid], "max" if kind == "max" else "min", lengths=edges.counts,
-        unsafe=True,
-    )
+class _Extremum(torch.autograd.Function):
+    """``torch.segment_reduce`` max or min over the sorted runs; backward:
+    each segment's gradient split evenly among the entries that equal its
+    extremum, as ``jax.ops.segment_max``'s is (``segment_reduce``'s own
+    backward does not split a tie of more than two), gathered by the
+    ascending destination and with the ties counted by the segment-sum
+    kernel -- no atomics."""
+
+    @staticmethod
+    def forward(ctx, x, dst, counts, n_valid, kind, backend):
+        out = torch.segment_reduce(x[:n_valid], kind, lengths=counts, unsafe=True)
+        ctx.save_for_backward(x, dst, out)
+        ctx.n_valid, ctx.backend = n_valid, backend
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, dst, out = ctx.saved_tensors
+        nv = ctx.n_valid
+        ids = dst[:nv]
+        hit = x[:nv] == out.index_select(0, ids)
+        flat = hit.reshape(nv, -1).to(torch.float32)
+        ties = sorted_segment_sum(ids, flat, out.shape[0], assume_sorted=True,
+                                  backend=ctx.backend).reshape(out.shape)
+        share = grad_out / torch.clamp(ties, min=1.0).to(grad_out.dtype)
+        grad = torch.zeros_like(x)
+        grad[:nv] = torch.where(hit, share.index_select(0, ids), torch.zeros((), dtype=x.dtype,
+                                                                              device=x.device))
+        return grad, None, None, None, None, None
+
+
+def _extremum(x: torch.Tensor, edges: SortedEdges, kind: str, backend) -> torch.Tensor:
+    out = _Extremum.apply(x, edges.dst, edges.counts, edges.n_valid,
+                          "max" if kind == "max" else "min", backend)
     return torch.where(torch.isfinite(out), out, torch.zeros((), dtype=out.dtype, device=out.device))
 
 
@@ -154,7 +206,7 @@ def segment_reduce(
     if kind == "mean":
         return segment_mean(x, edges, deg=deg, backend=backend)
     if kind in ("max", "min"):
-        return _extremum(x, edges, kind)
+        return _extremum(x, edges, kind, backend)
     if kind == "std":
         deg = degrees(edges, backend=backend) if deg is None else deg
         m = segment_mean(x, edges, deg=deg, backend=backend)

@@ -67,7 +67,7 @@ class PNA(nn.Module):
               deg: torch.Tensor, scaler_fns: dict, backend) -> torch.Tensor:
         """One PNA layer: ``h_src`` is the table ``edges.src`` indexes (``h``
         itself, or ``h`` with halo rows on a shard)."""
-        m = layer.msg(h_src).index_select(0, edges.src)  # [E, d], destination order
+        m = edges.gather_src(layer.msg(h_src), backend=backend)  # [E, d], destination order
         agg_kinds = list(self.cfg.extra["aggregators"])
         per_kind: dict[str, torch.Tensor] = {}
         if "mean" in agg_kinds and "std" in agg_kinds:

@@ -1,7 +1,8 @@
 """Decoder-only LM for the five transformer architectures: dense GQA
 (granite, mistral-nemo, tinyllama), MoE with a sliding window (mixtral) and
 MLA with MoE and MTP (deepseek-v3) (``repro.models.transformer``
-counterpart, serving and loss; the train step is not ported yet).
+counterpart: the forward and loss the train step differentiates, and
+decode).
 
 ``Transformer`` holds the reference's parameter tree: ``embed``, ``head``
 (absent under tied embeddings), ``final_norm``, ``dense_layers`` and
@@ -10,16 +11,20 @@ layer axis for ``lax.scan``; DeepSeek's leading dense layers come first),
 and ``mtp``.  The functions below take the model and read its config.
 
 ``backend`` selects the attention kernel (``models.attention``): None runs
-the CUDA flash kernel on a card and the plain paths on the CPU; ``"torch"``
-the plain paths anywhere.  The reference's ``remat`` (a training memory
-trade) and its ``constrain`` calls (mesh placement) mean nothing for a
-forward on one device and are dropped.
+the CUDA flash kernel on a card for a forward without gradients and the
+plain paths otherwise (the kernel has no backward); ``"torch"`` the plain
+paths anywhere.  Under ``cfg.remat``, where a gradient is asked for, each
+trunk layer runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of the scanned layer body): the backward keeps only the
+layers' inputs and recomputes each layer.  The reference's ``constrain``
+calls (mesh placement) mean nothing on one device and are dropped.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import attention as attn
@@ -135,10 +140,15 @@ def lm_hidden(model: Transformer, tokens: torch.Tensor, *, backend: str | None =
     x = model.embed[tokens]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     loads = None
+    remat = cfg.remat and torch.is_grad_enabled()
     for _, layers, is_moe in model.stacks():
         auxs, stack_loads = [], []
         for layer in layers:
-            x, (a, load) = _layer_fwd(cfg, layer, x, is_moe=is_moe, backend=backend)
+            if remat:
+                x, (a, load) = checkpoint(_layer_fwd, cfg, layer, x, is_moe=is_moe,
+                                          backend=backend, use_reentrant=False)
+            else:
+                x, (a, load) = _layer_fwd(cfg, layer, x, is_moe=is_moe, backend=backend)
             auxs.append(a)
             stack_loads.append(load)
         if is_moe:

@@ -30,7 +30,11 @@ ranks within 2e-4 of the dense forward.  LM and recsys: GQA attention
 through the kernel against the plain paths at the flash tolerances above
 (float32 ``2e-5``, the reference's chunked-against-dense bound); the MoE
 combine bit-identical over two calls; the ragged embedding bag at D = 10
-per bag within ``1e-6`` of its sum of |rows| against float64.
+per bag within ``1e-6`` of its sum of |rows| against float64.  Training:
+the flash entry refuses a gradient; MeshGraphNet's train-loss grads
+through the kernel (sums and the gathers' gradients) at rtol 1e-3 / atol
+1e-5 of the plain version's float64 grads; a GNN crash and restart equal
+the straight run bit for bit; an LM train step launches no flash kernel.
 """
 
 import dataclasses
@@ -790,3 +794,107 @@ def test_embedding_bag_segment_on_the_kernel_at_d10(cuda_device):
     assert out.dtype == torch.float32 and out.shape == (lengths.size, 10)
     assert bool(((out.double() - exact).abs() <= 1e-6 * scale).all())
     assert bool((out[torch.as_tensor(lengths == 0, device=cuda_device)] == 0).all())
+
+
+# -- training ------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_flash_entry_raises_under_grad_on_the_card(cuda_device):
+    """The kernel has no backward: asked for a gradient, the entry raises
+    before it launches; without grad it launches once."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn((1, 256, 4, 64), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16).requires_grad_(True)
+    k, v = (torch.randn((1, 256, 2, 64), generator=gen, device=cuda_device,
+                        dtype=torch.bfloat16) for _ in range(2))
+    before = flash_fwd.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, k, v, causal=True)
+    assert flash_fwd.launches == before
+    with torch.no_grad():
+        out = flash_attention(q, k, v, causal=True)
+    assert flash_fwd.launches == before + 1 and out.grad_fn is None
+
+
+def _mgn_batch(device, seed=0):
+    from repro_torch.data.synthetic import graph_batch
+    from repro_torch.launch.steps import build_bundle
+
+    bundle = build_bundle("meshgraphnet", "minibatch_lg", reduced=True, device=device)
+    batch = graph_batch(bundle.abstract_inputs, seed=seed, step=0,
+                        n_nodes=bundle.abstract_inputs["x"].shape[0], device=device)
+    return bundle, batch
+
+
+@pytest.mark.cuda
+def test_gnn_train_grads_through_the_kernel_match_float64(cuda_device):
+    """MeshGraphNet's train loss (launch/steps.py's: masked log-likelihood
+    over 64 classes) on a ``graph_batch`` batch: the kernel path's float32
+    grads (every sum, and every gather's gradient, on the segment-sum
+    kernel, counted in the backward) against the plain version run in
+    float64 on the card, at rtol 1e-3 / atol 1e-5 as the PNA grads test."""
+    bundle, batch = _mgn_batch(cuda_device)
+    grads = {}
+    for backend, dtype in (("cuda", torch.float32), ("torch", torch.float64)):
+        model = bundle.init_state_fn(1)["params"].to(dtype)
+        out = model(batch["x"].to(dtype), batch["edge_feat"].to(dtype), batch["edge_src"],
+                    batch["edge_dst"], edge_mask=batch["edge_mask"], backend=backend)
+        ll = torch.log_softmax(out, -1).gather(1, batch["labels"].long()[:, None])[:, 0]
+        w = batch["label_mask"].to(dtype)
+        loss = -(ll * w).sum() / w.sum().clamp(min=1.0)
+        before = segment_sum_sorted.launches
+        loss.backward()
+        torch.cuda.synchronize()
+        if backend == "cuda":
+            assert segment_sum_sorted.launches > before  # the gathers' gradients
+        grads[backend] = {k: p.grad for k, p in model.named_parameters()}
+    for k, g in grads["cuda"].items():
+        torch.testing.assert_close(g, grads["torch"][k].float(), rtol=1e-3, atol=1e-5, msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, shape", [("meshgraphnet", "minibatch_lg"),
+                                         ("pna", "full_graph_sm")])
+def test_gnn_train_restart_is_bit_exact_on_the_card(cuda_device, tmp_path, arch, shape):
+    """8 steps straight against a crash at step 6 and a restart from the
+    checkpoint at step 4: the same losses and the same final state, bit for
+    bit (no gradient of the step adds by atomics)."""
+    from repro_torch.launch.train import state_tree, train
+
+    kw = dict(steps=8, ckpt_every=4, verbose=False, device=cuda_device)
+    ref = train(arch, shape, ckpt_dir=str(tmp_path / "a"), **kw)
+    with pytest.raises(RuntimeError, match="injected crash"):
+        train(arch, shape, ckpt_dir=str(tmp_path / "b"), crash_at=6, **kw)
+    out = train(arch, shape, ckpt_dir=str(tmp_path / "b"), **kw)
+    assert out["losses"] == ref["losses"][4:]
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            yield from flat(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)]
+
+    a, b = dict(flat(state_tree(ref["final_state"]))), dict(flat(state_tree(out["final_state"])))
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+def test_lm_train_step_on_the_card_takes_the_plain_attention(cuda_device):
+    """A reduced TinyLlama train step on the card: no flash launch (the
+    kernel has no backward), every attention projection moved."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.steps import build_bundle
+
+    bundle = build_bundle("tinyllama-1.1b", "train_4k", reduced=True, device=cuda_device)
+    state = bundle.init_state_fn(0)
+    before = {n: p.detach().clone() for n, p in state["params"].named_parameters()}
+    batch = make_batch(bundle.abstract_inputs, seed=0, step=0, bounds=bundle.input_bounds,
+                       device=cuda_device)
+    launches = flash_fwd.launches
+    state, m = bundle.step_fn(state, batch)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches == launches and bool(torch.isfinite(m["loss"]))
+    for n, p in state["params"].named_parameters():
+        if n.rsplit(".", 1)[-1] in ("wq", "wk", "wv", "wo"):
+            assert not torch.equal(p, before[n]), n
