@@ -185,6 +185,21 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 only where its per-rank rebuilds are projected past the
                 time limit.  Also the relax kernel at the hub rank's D = 8
                 planes.
+  19. analysis -- the port's analysis layer (``repro_torch.analysis``) on
+                the card: every program on both backends over the small
+                audit graph (``rmat_graph(6, 4)``, 5 parts), each window's
+                host reads and transfers held to the engine's counters and
+                the ``cuda`` backend to its launches; one LIVJ/8P BFS window
+                (8 supersteps, the slice's sources) whose reads plus
+                transfers must equal the synchronizing calls that
+                ``set_sync_debug_mode("warn")`` reports in it; the mesh
+                audit on 2 ranks sharing the card (each program, unmirrored
+                and mirrored, both ranks' collective logs equal and each
+                superstep's the declared signature; the relayout sweep);
+                relax, segment sum and flash launched into poisoned memory
+                against their plain versions; and two controls that must be
+                flagged (one extra ``.item()`` in a window, a wrapper that
+                leaves rows unwritten).  Any finding fails the run.
 
 Each phase prints one JSON line, with its host-clock ``phase_seconds``.
 Then come the ``{"kernels": [...]}``
@@ -222,6 +237,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.analysis import trace_audit  # noqa: E402
+from repro_torch.analysis.findings import render as render_findings  # noqa: E402
+from repro_torch.analysis.fixtures import ALL_FIXTURES as ANALYSIS_FIXTURES  # noqa: E402
+from repro_torch.analysis.registry import AUDIT_BACKENDS  # noqa: E402
 from repro_torch.core import STRATEGIES, BillingModel, TimeFunction, evaluate  # noqa: E402
 from repro_torch.core.elastic import ElasticBSPExecutor  # noqa: E402
 from repro_torch.core.metagraph import predict_time_function  # noqa: E402
@@ -251,6 +270,7 @@ from repro_torch.graph.partition import (  # noqa: E402
 )
 from repro_torch.graph.sampler import NeighborSampler  # noqa: E402
 from repro_torch.graph.program import (  # noqa: E402
+    BUILTIN_PROGRAMS,
     BfsProgram,
     PageRankProgram,
     SsspProgram,
@@ -387,6 +407,10 @@ MESH_MIRROR_DEGREE = 1 << 16
 MESH_EXECUTOR_CUT_SCALE, MESH_EXECUTOR_MAX_S = 17, 120.0
 #: the swap run trades ranks 0 and 1's partitions after this many supersteps
 MESH_SWAP_AFTER = 2
+#: the analysis phase: its mesh audit's ranks (sharing the card over gloo)
+#: and the supersteps of its LIVJ/8P BFS window
+ANALYSIS_MESH_RANKS = 2
+ANALYSIS_LIVJ_WINDOW = 8
 #: the report fields of the executor's physical ledger: a mesh run may
 #: differ from the dense run there and nowhere else
 PHYSICAL_FIELDS = ("device_moves", "device_move_bytes", "residency", "relayouts",
@@ -3393,6 +3417,88 @@ def phase_mesh(pg, runs: dict, bfs_trace, pred_tf, device, seed: int) -> dict:
     return summary
 
 
+def phase_analysis(pg, device, seed: int) -> dict:
+    """The port's analysis layer on the card (``repro_torch.analysis``):
+    the dense audit matrix on both backends over the small audit graph; JX01
+    on one LIVJ/8P BFS window of the slice's engine, its reads and transfers
+    equal to the synchronizing calls ``set_sync_debug_mode("warn")`` counts
+    in the same window; the mesh audit on ``ANALYSIS_MESH_RANKS`` ranks
+    sharing the card (every program, unmirrored and mirrored, and the
+    relayout sweep, on the ``cuda`` backend); each kernel wrapper launched
+    into poisoned memory; and two controls that must be flagged: a window
+    with one extra ``.item()``, and a wrapper that leaves rows unwritten.
+    Any finding fails the run."""
+    small = trace_audit.default_audit_graph()
+    findings, seconds = [], {}
+
+    t0 = time.perf_counter()
+    dense = {}
+    for name, ctor in BUILTIN_PROGRAMS.items():
+        for backend in AUDIT_BACKENDS:
+            f, dense[f"{name}/{backend}"] = trace_audit.audit_dense(
+                small, ctor(), backend, device=device)
+            findings += f
+    seconds["dense"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    engine = get_engine(pg, program=BfsProgram(), config=EngineConfig(
+        device=str(device), backend="cuda", m_max=MAX_SUPERSTEPS))
+    state = engine.init_state(_main_path_programs(pg, seed)[0][2])
+    torch.cuda.synchronize()
+    (f, livj, _), syncs = trace_audit.synchronizing_calls(
+        lambda: trace_audit.audit_window(engine, state, ANALYSIS_LIVJ_WINDOW, "livj/bfs/cuda"))
+    findings += f
+    livj = {k: v for k, v in livj.items() if k != "events"}
+    _check(syncs == livj["reads"] + livj["transfers"],
+           f"sync debug counted {syncs} synchronizing calls in the LIVJ window, the audit "
+           f"{livj['reads']} reads + {livj['transfers']} transfers")
+    seconds["livj_window"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    f, mesh = trace_audit.audit_mesh_matrix(
+        small, backends=("cuda",), d_n=ANALYSIS_MESH_RANKS, device="cuda",
+        sweep_backend="cuda", timeout=MESH_LAUNCH_TIMEOUT_S)
+    findings += f
+    seconds["mesh"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    f, poison = trace_audit.audit_poisoned_kernels(device, seed)
+    findings += f
+    _check(len(poison) == 7 and all(r["landed"] and r["poisoned_bytes"] > 0 for r in poison),
+           f"the poison did not reach every case's output block: {poison}")
+    seconds["poison"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    control = trace_audit.control_extra_read(small, "cuda", device=device)
+    _check(any(c.rule == "JX01" and "uncounted host read" in c.message for c in control),
+           f"the extra-.item() control was not flagged: {control}")
+    (skip,) = [fx for fx in ANALYSIS_FIXTURES if fx.rule == "AL03"]
+    skipped = skip.run(device)
+    _check(any("poisoned memory" in c.message for c in skipped),
+           f"the skipped-rows wrapper was not caught under poisoned memory: {skipped}")
+    seconds["controls"] = time.perf_counter() - t0
+
+    _check(not findings, f"{len(findings)} analysis finding(s):\n{render_findings(findings)}")
+    rows0 = {k: v[0] for k, v in dense.items()}
+    return {
+        "graph": {"n": small.graph.n_vertices, "E": small.graph.n_edges, "parts": small.n_parts},
+        "findings": len(findings),
+        "dense": {k: {f: r[f] for f in ("reads", "transfers", "pulls", "ops", "launches",
+                                         "partition_launches", "grid_checks")}
+                  for k, r in rows0.items()},
+        "livj_window": {**livj, "k": ANALYSIS_LIVJ_WINDOW, "sync_debug_calls": syncs},
+        "transfers_per_pull": livj["transfers_per_pull"],
+        "mesh": {"ranks": mesh["ranks"], "backend": mesh["backend"],
+                 "launch_s": mesh["launch_s"], "sweep": mesh["sweep"],
+                 "cases": [{k: c[k] for k in ("label", "mirrored", "collectives")}
+                           for c in mesh["cases"]]},
+        "poison": poison,
+        "controls": {"extra_item": [str(c) for c in control],
+                     "skipped_rows": [str(c) for c in skipped]},
+        "seconds": seconds,
+    }
+
+
 def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
                  seg_livj: dict, path_launches: dict, mesh_planes: list, gnn: dict,
                  gnn_case: dict, lm: dict, recsys: dict, train_line: dict) -> dict:
@@ -3536,6 +3642,8 @@ def main(argv=None) -> int:
     _emit("relax_entries", report["relax_entries"])
     report["mesh"] = phase_mesh(pg, runs, bfs_trace, pred_tf, device, args.seed)
     _emit("mesh", report["mesh"])
+    report["analysis"] = phase_analysis(pg, device, args.seed)
+    _emit("analysis", report["analysis"])
     report["kernels"] = kernels_line(
         checks, report["slice"]["variant_launches"], report["segment_sum"],
         report["flash_attention"], report["segment_sum_livj"],

@@ -354,6 +354,7 @@ class MeshTraversalProgram:
         self.device = mesh.device
         self.pg = pg
         self.program = validate_program(program or SsspProgram())
+        self._identity = self.program.identity.item()  # once, as a Python scalar
         self.backend = validate_backend(backend, self.device)
         self.mirror_degree = mirror_degree
         ml = mesh_rank_layout(
@@ -449,7 +450,7 @@ class MeshTraversalProgram:
         s_batch = dist.shape[0]
         p, d_n = self.pg.n_parts, mesh.world_size
         n_global = self.pg.graph.n_vertices
-        ident = prog.identity.item()
+        ident = self._identity
         i32 = torch.int32
         kw = dict(device=self.device)
         use_mirror = c.mirror is not None
@@ -465,8 +466,9 @@ class MeshTraversalProgram:
             coll(kind)
             return mesh.all_reduce(flags.to(i32), "max") > 0
 
-        def read_any(t, kind) -> bool:  # one host read of the global any
-            coll(kind)
+        def read_any(t, kind=None) -> bool:  # one host read of the global any
+            if kind is not None:
+                coll(kind)
             self.host_reads += 1
             return bool(mesh.all_reduce(t.any().reshape(1).to(i32), "max").item())
 
@@ -598,8 +600,7 @@ class MeshTraversalProgram:
         s, cond_evals = 0, 0
         while s < m_max:
             cond_evals += 1
-            self.host_reads += 1
-            if not bool(mesh.all_reduce(fr.any().reshape(1).to(i32), "max").item()):
+            if not read_any(fr):  # the superstep condition: outside the tally
                 break
             counts = {}
             if prog.stationary:

@@ -317,6 +317,9 @@ class TraversalEngine:
         self.backend = validate_backend(cfg.backend, self.device)
         self.pg = pg
         self.program = validate_program(program or SsspProgram())
+        # a Python scalar, read once: the window and the row surgery take
+        # it from here, so no read of it sits on the hot path
+        self._identity = self.program.identity.item()
         self.m_max = int(cfg.m_max)
         self.collect_subgraphs = bool(cfg.collect_subgraphs)
         self.n = pg.graph.n_vertices
@@ -421,7 +424,7 @@ class TraversalEngine:
         s_batch = dist.shape[0]
         n, p = self.n, self.n_parts
         prog = self.program
-        ident = prog.identity.item()
+        ident = self._identity
         dev = self._dev
         i32 = torch.int32
         kw = dict(device=self.device)
@@ -563,7 +566,7 @@ class TraversalEngine:
         dist = state.dist.clone()
         frontier = state.frontier.clone()
         nst = state.n_supersteps.clone()
-        dist[rows_t] = torch.where(live_t, fresh.dist, self.program.identity.item())
+        dist[rows_t] = torch.where(live_t, fresh.dist, self._identity)
         frontier[rows_t] = fresh.frontier & live_t
         nst[rows_t] = 0
         return WindowState(dist, frontier, nst)

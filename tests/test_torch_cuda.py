@@ -898,3 +898,69 @@ def test_lm_train_step_on_the_card_takes_the_plain_attention(cuda_device):
     for n, p in state["params"].named_parameters():
         if n.rsplit(".", 1)[-1] in ("wq", "wk", "wv", "wo"):
             assert not torch.equal(p, before[n]), n
+
+
+# -- the analysis layer on the card ----------------------------------------------
+
+
+@pytest.mark.cuda
+def test_audit_tree_on_the_card_is_clean(cuda_device):
+    """Every program on both backends, dense and on 4 gloo ranks sharing
+    the card (unmirrored and mirrored), the relayout sweep, the layout
+    budgets and the delta cycle: no finding, and the ``cuda`` backend's
+    windows launched the relax kernel."""
+    from repro_torch.analysis.findings import render
+    from repro_torch.analysis.trace_audit import audit_tree
+
+    summary = {}
+    findings = audit_tree(device=cuda_device, summary=summary)
+    assert not findings, render(findings)
+    cuda_rows = [rows for key, rows in summary["dense"].items() if key.endswith("/cuda")]
+    assert len(cuda_rows) == 4 and all(rows[0]["launches"] > 0 for rows in cuda_rows)
+    assert all(rows[0]["transfers"] == 7 for rows in cuda_rows)
+
+
+@pytest.mark.cuda
+def test_poisoned_output_check_passes_for_all_three_wrappers(cuda_device):
+    """Relax (three instantiations), the segment sum (D = 1, 75) and flash
+    (d = 128, 64) launched into the allocator's poisoned free blocks equal
+    their plain versions; a wrapper that leaves rows unwritten is caught
+    the same way."""
+    from repro_torch.analysis.findings import render
+    from repro_torch.analysis.fixtures import ALL_FIXTURES
+    from repro_torch.analysis.trace_audit import audit_poisoned_kernels
+
+    findings, rows = audit_poisoned_kernels(cuda_device)
+    assert not findings, render(findings)
+    assert len(rows) == 7 and all(r["landed"] and r["poisoned_bytes"] > 0 for r in rows)
+    (skip,) = [fx for fx in ALL_FIXTURES if fx.rule == "AL03"]
+    assert any("poisoned memory" in f.message for f in skip.run(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_extra_item_control_is_flagged_on_the_card(cuda_device, backend):
+    from repro_torch.analysis.findings import render
+    from repro_torch.analysis.trace_audit import control_extra_read, default_audit_graph
+
+    findings = control_extra_read(default_audit_graph(), backend, device=cuda_device)
+    assert [f.rule for f in findings] == ["JX01"], render(findings)
+    assert "1 uncounted host read" in findings[0].message
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BUILTIN_PROGRAMS))
+def test_sync_debug_count_equals_audited_reads_and_transfers(cuda_device, name):
+    """The card's own count of synchronizing calls in a window equals the
+    op log's host reads plus device-to-host transfers."""
+    from repro_torch.analysis import trace_audit
+
+    pg = trace_audit.default_audit_graph()
+    engine = TraversalEngine(pg, program=BUILTIN_PROGRAMS[name](),
+                             config=EngineConfig(device="cuda", backend="cuda", m_max=8))
+    state = engine.init_state([0, 7, 33])
+    torch.cuda.synchronize()
+    (findings, stats, _), n = trace_audit.synchronizing_calls(
+        lambda: trace_audit.audit_window(engine, state, 8, name))
+    assert not findings
+    assert n == stats["reads"] + stats["transfers"] and stats["transfers"] == 7

@@ -207,3 +207,26 @@ def test_lm_recsys_slice_modules_are_held_standalone():
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
+
+
+def test_analysis_slice_modules_are_held_standalone():
+    """The analysis slice's modules are among the files and modules the
+    checks above cover, and its CLI, which audits on the card by default,
+    refuses to run without one rather than falling back to the CPU."""
+    names = {_module_name(p) for p in PORT_FILES if p != SMOKE}
+    for mod in (
+        "repro_torch.analysis", "repro_torch.analysis.__main__",
+        "repro_torch.analysis.findings", "repro_torch.analysis.registry",
+        "repro_torch.analysis.lint", "repro_torch.analysis.trace_audit",
+        "repro_torch.analysis.fixtures",
+    ):
+        assert mod in names, mod
+    if torch.cuda.is_available():
+        return
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis"], capture_output=True, text=True,
+        timeout=300, cwd=str(ROOT), env=env,
+    )
+    assert proc.returncode != 0 and "finding" not in proc.stdout
+    assert "CUDA is not available" in proc.stderr
