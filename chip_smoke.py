@@ -240,7 +240,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.analysis import trace_audit  # noqa: E402
 from repro_torch.analysis.findings import render as render_findings  # noqa: E402
 from repro_torch.analysis.fixtures import ALL_FIXTURES as ANALYSIS_FIXTURES  # noqa: E402
-from repro_torch.analysis.registry import AUDIT_BACKENDS  # noqa: E402
 from repro_torch.core import STRATEGIES, BillingModel, TimeFunction, evaluate  # noqa: E402
 from repro_torch.core.elastic import ElasticBSPExecutor  # noqa: E402
 from repro_torch.core.metagraph import predict_time_function  # noqa: E402
@@ -270,7 +269,6 @@ from repro_torch.graph.partition import (  # noqa: E402
 )
 from repro_torch.graph.sampler import NeighborSampler  # noqa: E402
 from repro_torch.graph.program import (  # noqa: E402
-    BUILTIN_PROGRAMS,
     BfsProgram,
     PageRankProgram,
     SsspProgram,
@@ -3419,26 +3417,29 @@ def phase_mesh(pg, runs: dict, bfs_trace, pred_tf, device, seed: int) -> dict:
 
 def phase_analysis(pg, device, seed: int) -> dict:
     """The port's analysis layer on the card (``repro_torch.analysis``):
-    the dense audit matrix on both backends over the small audit graph; JX01
-    on one LIVJ/8P BFS window of the slice's engine, its reads and transfers
-    equal to the synchronizing calls ``set_sync_debug_mode("warn")`` counts
-    in the same window; the mesh audit on ``ANALYSIS_MESH_RANKS`` ranks
-    sharing the card (every program, unmirrored and mirrored, and the
-    relayout sweep, on the ``cuda`` backend); each kernel wrapper launched
-    into poisoned memory; and two controls that must be flagged: a window
-    with one extra ``.item()``, and a wrapper that leaves rows unwritten.
-    Any finding fails the run."""
+    ``audit_tree`` on the small audit graph -- every program on both
+    backends, dense and on ``ANALYSIS_MESH_RANKS`` ranks sharing the card
+    (unmirrored and mirrored, with the relayout sweep), the layout budgets
+    and the delta cycle; JX01 on one LIVJ/8P BFS window of the slice's
+    engine, its reads and transfers equal to the synchronizing calls
+    ``set_sync_debug_mode("warn")`` counts in the same window; each kernel
+    wrapper launched into poisoned memory; and two controls that must be
+    flagged: a window with one extra ``.item()``, and a wrapper that leaves
+    rows unwritten.  Any finding fails the run."""
     small = trace_audit.default_audit_graph()
-    findings, seconds = [], {}
+    seconds, tree = {}, {}
 
     t0 = time.perf_counter()
-    dense = {}
-    for name, ctor in BUILTIN_PROGRAMS.items():
-        for backend in AUDIT_BACKENDS:
-            f, dense[f"{name}/{backend}"] = trace_audit.audit_dense(
-                small, ctor(), backend, device=device)
-            findings += f
-    seconds["dense"] = time.perf_counter() - t0
+    findings = trace_audit.audit_tree(small, device=device, d_n=ANALYSIS_MESH_RANKS, summary=tree)
+    seconds["tree"] = time.perf_counter() - t0
+    mesh = tree["mesh"]
+    for key, rows in [*tree["dense"].items(),
+                      *((c["label"], c["stats_rank0"]) for c in mesh["cases"])]:
+        if "/cuda" in key:
+            _check(all(r["launches"] > 0 for r in rows)
+                   and not any(r["partition_launches"] for r in rows[1:]),
+                   f"{key}: a window of the cuda backend launched no relax kernel, or a "
+                   f"later one split a row_ptr again: {rows}")
 
     t0 = time.perf_counter()
     engine = get_engine(pg, program=BfsProgram(), config=EngineConfig(
@@ -3453,13 +3454,6 @@ def phase_analysis(pg, device, seed: int) -> dict:
            f"sync debug counted {syncs} synchronizing calls in the LIVJ window, the audit "
            f"{livj['reads']} reads + {livj['transfers']} transfers")
     seconds["livj_window"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    f, mesh = trace_audit.audit_mesh_matrix(
-        small, backends=("cuda",), d_n=ANALYSIS_MESH_RANKS, device="cuda",
-        sweep_backend="cuda", timeout=MESH_LAUNCH_TIMEOUT_S)
-    findings += f
-    seconds["mesh"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     f, poison = trace_audit.audit_poisoned_kernels(device, seed)
@@ -3479,18 +3473,21 @@ def phase_analysis(pg, device, seed: int) -> dict:
     seconds["controls"] = time.perf_counter() - t0
 
     _check(not findings, f"{len(findings)} analysis finding(s):\n{render_findings(findings)}")
-    rows0 = {k: v[0] for k, v in dense.items()}
+    fields = ("reads", "transfers", "pulls", "ops", "inner_iters", "launches",
+              "partition_launches", "grid_checks")
     return {
         "graph": {"n": small.graph.n_vertices, "E": small.graph.n_edges, "parts": small.n_parts},
+        "windows": trace_audit.AUDIT_WINDOWS,
         "findings": len(findings),
-        "dense": {k: {f: r[f] for f in ("reads", "transfers", "pulls", "ops", "launches",
-                                         "partition_launches", "grid_checks")}
-                  for k, r in rows0.items()},
+        "dense": {k: [{f: r[f] for f in fields} for r in rows]
+                  for k, rows in tree["dense"].items()},
         "livj_window": {**livj, "k": ANALYSIS_LIVJ_WINDOW, "sync_debug_calls": syncs},
         "transfers_per_pull": livj["transfers_per_pull"],
         "mesh": {"ranks": mesh["ranks"], "backend": mesh["backend"],
                  "launch_s": mesh["launch_s"], "sweep": mesh["sweep"],
-                 "cases": [{k: c[k] for k in ("label", "mirrored", "collectives")}
+                 "cases": [{"label": c["label"], "mirrored": c["mirrored"],
+                            "collectives": c["collectives"],
+                            "windows_rank0": [{f: r[f] for f in fields} for r in c["stats_rank0"]]}
                            for c in mesh["cases"]]},
         "poison": poison,
         "controls": {"extra_item": [str(c) for c in control],

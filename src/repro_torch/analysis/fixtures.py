@@ -31,6 +31,7 @@ from repro_torch.analysis.trace_audit import (
     grid_findings,
     simulated_mesh,
 )
+from repro_torch.graph.config import resolve_device
 from repro_torch.kernels.bfs_relax.ref import relax_reference
 
 _D = 4  # simulated mesh width of the SPMD fixtures
@@ -330,11 +331,13 @@ ALL_FIXTURES = (
 )
 
 
-def run_fixtures(device="cpu") -> list[FixtureResult]:
+def run_fixtures(device="cuda") -> list[FixtureResult]:
     """Run the whole corpus; a fixture is flagged iff some finding carries
     its rule id AND its pinned message substring.  ``device`` is where the
-    uninitialized-output fixture runs its wrapper (on a card, into the
-    caching allocator's poisoned blocks); the rest run on the CPU."""
+    uninitialized-output fixture runs its wrapper (the card by default, into
+    the caching allocator's poisoned blocks; a CUDA device without CUDA
+    raises); the rest run on the CPU."""
+    device = resolve_device(device)
     results = []
     for fx in ALL_FIXTURES:
         findings = fx.run(device)

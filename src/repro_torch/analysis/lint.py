@@ -13,8 +13,9 @@ Rules (ids in ``findings.RULES``):
         indexing).  Each is a host read that stalls the card between two
         launches.  Reading a tensor's metadata (``.shape``, ``.dtype``,
         ``.device``, ``.dim()``, ``.numel()``, ...) reads no device memory
-        and is legal, as is a call to a ``registry.COUNTED_READS`` helper:
-        those reads are counted, and the window auditor holds the counts.
+        and is legal, as is a call to a ``registry.COUNTED_READS`` helper in
+        the file that defines it (its arguments are still linted): those
+        reads are counted, and the window auditor holds the counts.
   AL02  cache discipline: long-lived dict caches (module-level dicts mutated
         by module functions, or dicts installed via ``__dict__``) must be
         ``structs.BoundedCache`` (or visibly bounded via ``popitem``).
@@ -82,7 +83,7 @@ def _call_name(node: ast.expr) -> str:
 
 
 def _is_counted_call(node: ast.AST, counted: set) -> bool:
-    return isinstance(node, ast.Call) and _call_name(node.func).split(".")[-1] in counted
+    return isinstance(node, ast.Call) and _call_name(node.func) in counted
 
 
 def _data_reads(node: ast.AST, arrays: set, counted: set) -> set:
@@ -109,15 +110,14 @@ def _data_reads(node: ast.AST, arrays: set, counted: set) -> set:
 
 def _hot_nodes(fn: ast.FunctionDef, counted: set):
     """Every node of ``fn``'s body, nested defs included, except the bodies
-    of nested counted helpers and the arguments of counted-helper calls."""
+    of nested counted helpers."""
+    helpers = {c.rpartition(".")[2] for c in counted}
     stack = list(fn.body)
     while stack:
         node = stack.pop()
-        if isinstance(node, ast.FunctionDef) and node.name in counted:
+        if isinstance(node, ast.FunctionDef) and node.name in helpers:
             continue
         yield node
-        if _is_counted_call(node, counted):
-            continue
         stack.extend(ast.iter_child_nodes(node))
 
 
@@ -199,7 +199,7 @@ def _check_hot_path(path: str, tree: ast.Module, hot_overrides=None) -> list:
     }
     for name, params in (hot_overrides or ()):
         registry[name] = set(params)
-    counted = {name for _, name in COUNTED_READS}
+    counted = {call for suffix, call in COUNTED_READS if norm.endswith(suffix)}
     findings = []
     for node in ast.walk(tree):
         if isinstance(node, ast.FunctionDef) and node.name in registry:

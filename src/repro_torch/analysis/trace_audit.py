@@ -99,8 +99,14 @@ from repro_torch.kernels.segment_sum.ref import reference_segment_sum
 #: the sources every audited window starts from (batch rows for WCC/PageRank)
 AUDIT_SOURCES = (0, 7, 33)
 
-#: supersteps a window of the audit runs, and how many windows it chains
-AUDIT_WINDOWS = (4, 4)
+#: supersteps each chained window of the audit may run: the first stops at
+#: its bound mid-traversal, so the later one has supersteps left to run (on
+#: the audit graph BFS, SSSP and WCC converge within it, PageRank runs it
+#: to its bound)
+AUDIT_WINDOWS = (1, 4)
+
+#: how long the mesh audit's one launch of ranks may take
+MESH_AUDIT_TIMEOUT_S = 600.0
 
 #: the collectives every mesh window ends with, after its superstep loop:
 #: one ``all_reduce(SUM)`` of every counter and the partition activity
@@ -132,6 +138,13 @@ class OpLog(TorchDispatchMode):
     ``all_reduce`` results only -- the same value on every rank; each read
     event says whether the value it read was.
     """
+
+    @classmethod
+    def _should_skip_dynamo(cls) -> bool:
+        # the log never runs under torch.compile: left wrapped in
+        # ``torch._disable_dynamo``, its first op imports torch._dynamo and
+        # sympy (seconds, in every mesh rank) for nothing
+        return False
 
     def __init__(self):
         super().__init__()
@@ -361,21 +374,23 @@ def audit_window(engine, state, k: int, label: str, *, first: bool = True):
             "JX03", label, f"{launches} launch(es) but {len(checks)} grid check(s): "
             "a launch ran without check_grid",
         ))
-    # a window launches the kernel iff it ran a superstep over some edge (a
-    # mesh plane with no valid edge on this rank launches nothing)
+    # a window launches the kernel unless it has no edge to relax (a mesh
+    # plane with no valid edge on this rank launches nothing) or it began
+    # after the traversal had converged (it runs no superstep)
     if engine._mesh_prog is not None:
         has_edges = any(p is not None and p.n_valid for p in engine._mesh_prog._consts[:3])
     else:
         has_edges = engine.pg.graph.n_edges > 0
-    ran = bool(np.asarray(result.inner_iters).sum() > 0)
+    inner_iters = int(np.asarray(result.inner_iters).sum())
+    converged = inner_iters == 0 and bool(np.asarray(result.done).all())
     stats = {
         "reads": log.reads, "transfers": transfers, "pulls": pulls,
-        "ops": len(log.records), "launches": launches,
+        "ops": len(log.records), "inner_iters": inner_iters, "launches": launches,
         "partition_launches": kern.partition_launches - parts0,
         "grid_checks": len(checks), "events": log.events,
         "transfers_per_pull": transfers / pulls if pulls else None,
     }
-    findings += _launch_findings(engine.backend, stats, label, first, has_edges and ran)
+    findings += _launch_findings(engine.backend, stats, label, first, has_edges and not converged)
     return findings, stats, result
 
 
@@ -648,15 +663,15 @@ def _kinds(events) -> Counter:
 
 
 def check_window_collectives(
-    events: list, signature: dict, label: str, *, m_max: int,
-    epilogue: dict = MESH_WINDOW_EPILOGUE, record: list | None = None,
+    events: list, signature: dict, label: str, *, m_max: int, record: list | None = None,
 ) -> list[Finding]:
     """Check one rank's window against a declared signature.
 
     ``events`` is the window's ordered stream (``OpLog.events``);
     ``signature`` the per-superstep declaration
-    (``validate_collective_signature``); ``epilogue`` the window-level one;
-    ``record`` the program's own per-superstep tally, when there is one.
+    (``validate_collective_signature``), and ``MESH_WINDOW_EPILOGUE`` the
+    window-level one; ``record`` the program's own per-superstep tally,
+    when there is one.
     A superstep is its condition (an ``all_reduce(max)`` read on the host),
     ``pmax_boundary`` syncs, ``pmax_closure`` syncs per closure iteration
     (each iteration ends in one host read, its loop condition), ``psum``
@@ -717,11 +732,11 @@ def check_window_collectives(
     epi = dict(kinds)
     epi["all_reduce:max"] = epi.get("all_reduce:max", 0) - cond
     epi = {k: v for k, v in epi.items() if v}
-    if epi != {k: v for k, v in epilogue.items() if v} or reads != cond:
+    if epi != MESH_WINDOW_EPILOGUE or reads != cond:
         findings.append(Finding(
             "JX02", label,
             f"window epilogue collectives {epi} ({reads} host reads) != declared "
-            f"{epilogue} after {'a final' if cond else 'no'} superstep condition: "
+            f"{MESH_WINDOW_EPILOGUE} after {'a final' if cond else 'no'} superstep condition: "
             "a dropped counter sum ships per-rank partial counters as if global",
         ))
     return findings
@@ -914,7 +929,7 @@ def _layout_mismatch_fields(a, b) -> list:
     return bad
 
 
-def audit_delta_cycle(pg=None, *, d_n: int = AUDIT_MESH_WIDTH, label: str | None = None) -> list[Finding]:
+def audit_delta_cycle(pg, *, d_n: int = AUDIT_MESH_WIDTH) -> list[Finding]:
     """JX04 over the streaming-mutation path: mutate -> merge -> mutate.
 
     Two delta generations through ``merged_mesh_layout``: every generation
@@ -927,8 +942,8 @@ def audit_delta_cycle(pg=None, *, d_n: int = AUDIT_MESH_WIDTH, label: str | None
     """
     from repro_torch.graph.deltas import EdgeDeltaBuffer, apply_delta_buffer, merged_mesh_layout
 
-    pg = _fresh(pg if pg is not None else default_audit_graph())
-    label = label or f"budget/delta-cycle/d{d_n}"
+    pg = _fresh(pg)
+    label = f"budget/delta-cycle/d{d_n}"
     findings = []
     dmap = contiguous_device_map(pg.n_parts, d_n)
     layout = mesh_edge_layout(pg, dmap, d_n)
@@ -979,18 +994,17 @@ def audit_delta_cycle(pg=None, *, d_n: int = AUDIT_MESH_WIDTH, label: str | None
 # -- the dense matrix ---------------------------------------------------------
 
 
-def audit_dense(
-    pg, program, backend: str, *, device="cuda", windows=AUDIT_WINDOWS, label: str | None = None,
-) -> tuple[list[Finding], list[dict]]:
-    """Run and audit chained windows of one dense engine: JX01 and JX03 per
-    window, JX05 for the program.  Returns ``(findings, per-window stats)``."""
+def audit_dense(pg, program, backend: str, *, device="cuda") -> tuple[list[Finding], list[dict]]:
+    """Run and audit the ``AUDIT_WINDOWS`` of one dense engine, chained:
+    JX01 and JX03 per window, JX05 for the program.  Returns ``(findings,
+    per-window stats)``."""
     program = validate_program(program)
-    label = label or f"dense/{program.name}/{backend}"
-    cfg = EngineConfig(device=str(device), backend=backend, m_max=max(windows))
+    label = f"dense/{program.name}/{backend}"
+    cfg = EngineConfig(device=str(device), backend=backend, m_max=max(AUDIT_WINDOWS))
     engine = traversal_module.TraversalEngine(pg, program=program, config=cfg)
     state = engine.init_state(list(AUDIT_SOURCES))
     findings, rows = [], []
-    for i, k in enumerate(windows):
+    for i, k in enumerate(AUDIT_WINDOWS):
         f, stats, res = audit_window(engine, state, k, f"{label}/w{i}", first=i == 0)
         findings += f
         rows.append({k: v for k, v in stats.items() if k != "events"})
@@ -1017,10 +1031,12 @@ class ExtraReadProgram(BfsProgram):
         return super().relax(msg, w)
 
 
-def control_extra_read(pg, backend: str, *, device="cuda", k: int = AUDIT_WINDOWS[0]) -> list[Finding]:
-    """One window of a BFS engine with one extra ``.item()`` (the control):
-    the JX01 findings it draws, which must not be empty."""
+def control_extra_read(pg, backend: str, *, device="cuda") -> list[Finding]:
+    """The first window of ``AUDIT_WINDOWS`` on a BFS engine with one extra
+    ``.item()`` (the control): the JX01 findings it draws, which must not
+    be empty."""
     program = ExtraReadProgram()
+    k = AUDIT_WINDOWS[0]
     cfg = EngineConfig(device=str(device), backend=backend, m_max=k)
     engine = traversal_module.TraversalEngine(pg, program=program, config=cfg)
     state = engine.init_state(list(AUDIT_SOURCES))
@@ -1031,11 +1047,11 @@ def control_extra_read(pg, backend: str, *, device="cuda", k: int = AUDIT_WINDOW
 # -- the mesh matrix (one launch of ranks) ------------------------------------
 
 
-def _rank_case(pg, mesh, name: str, backend: str, mirror_degree, windows) -> dict:
+def _rank_case(pg, mesh, name: str, backend: str, mirror_degree) -> dict:
     program = BUILTIN_PROGRAMS[name]()
     cfg = EngineConfig(
         device=mesh.device.type, backend=backend, mesh=mesh,
-        mirror_degree=mirror_degree, m_max=max(windows),
+        mirror_degree=mirror_degree, m_max=max(AUDIT_WINDOWS),
     )
     engine = traversal_module.TraversalEngine(pg, program=program, config=cfg)
     prog = engine._mesh_prog
@@ -1045,7 +1061,7 @@ def _rank_case(pg, mesh, name: str, backend: str, mirror_degree, windows) -> dic
     label = f"mesh/{name}/{backend}/d{mesh.world_size}{tag}"
     state = engine.init_state(list(AUDIT_SOURCES))
     findings, logs, rows = [], [], []
-    for i, k in enumerate(windows):
+    for i, k in enumerate(AUDIT_WINDOWS):
         where = f"{label}/rank{mesh.rank}/w{i}"
         f, stats, res = audit_window(engine, state, k, where, first=i == 0)
         findings += f + check_window_collectives(
@@ -1084,17 +1100,17 @@ def _rank_sweep(pg, mesh, backend: str) -> dict:
     }
 
 
-def mesh_audit_rank(cases, windows, sweep_backend, graph=None) -> dict:
+def mesh_audit_rank(pg, cases, sweep_backend: str) -> dict:
     """One rank's share of the mesh audit (``run_ranks`` target): each case
-    ``(program, backend, mirror_degree)`` audited over ``windows``, then the
-    relayout sweep on ``sweep_backend`` (None: none)."""
+    ``(program, backend, mirror_degree)`` audited over ``AUDIT_WINDOWS``,
+    then the relayout sweep on ``sweep_backend``."""
     from repro_torch.dist import partition_mesh
 
-    pg = graph if graph is not None else default_audit_graph()
     mesh = RecordingMesh.wrap(partition_mesh())
-    out = {"cases": [_rank_case(pg, mesh, *case, windows) for case in cases]}
-    out["sweep"] = None if sweep_backend is None else _rank_sweep(pg, mesh, sweep_backend)
-    return out
+    return {
+        "cases": [_rank_case(pg, mesh, *case) for case in cases],
+        "sweep": _rank_sweep(pg, mesh, sweep_backend),
+    }
 
 
 def _sweep_findings(sweep: dict, label: str) -> list[Finding]:
@@ -1129,20 +1145,20 @@ def mesh_cases(backends) -> list[tuple]:
 
 
 def audit_mesh_matrix(
-    pg=None, *, backends=("torch",), d_n: int = AUDIT_MESH_WIDTH, device: str = "cpu",
-    cases=None, windows=AUDIT_WINDOWS, sweep_backend: str | None = "torch",
-    timeout: float = 600.0,
+    pg, *, device="cuda", backends=AUDIT_BACKENDS, d_n: int = AUDIT_MESH_WIDTH,
 ) -> tuple[list[Finding], dict]:
-    """Every mesh case on ``d_n`` ranks of one ``run_ranks`` launch: each
-    rank audits its windows (JX01, JX02 per rank, JX03), the parent holds
-    the ranks' ordered collective logs equal (JX02) and the relayout sweep's
-    builds (JX04).  Returns ``(findings, summary)``."""
+    """Every mesh case of ``backends`` on ``d_n`` ranks of one ``run_ranks``
+    launch on ``device`` (the card by default): each rank audits its
+    windows (JX01, JX02 per rank, JX03), the parent holds the ranks' ordered
+    collective logs equal (JX02) and the relayout sweep's builds on the last
+    backend (JX04).  Returns ``(findings, summary)``."""
     from repro_torch.dist import run_ranks
 
-    cases = cases if cases is not None else mesh_cases(backends)
+    cases = mesh_cases(backends)
+    sweep_backend = backends[-1]
     results = run_ranks(
-        mesh_audit_rank, d_n, device=device, timeout=timeout,
-        args=(cases, tuple(windows), sweep_backend, None if pg is None else _fresh(pg)),
+        mesh_audit_rank, d_n, device=resolve_device(device).type, timeout=MESH_AUDIT_TIMEOUT_S,
+        args=(_fresh(pg), cases, sweep_backend),
     )
     findings = []
     summary = {"ranks": d_n, "backend": results.backend, "launch_s": results.seconds,
@@ -1152,17 +1168,16 @@ def audit_mesh_matrix(
         label = per_rank[0]["label"]
         for rank_case in per_rank:
             findings += rank_case["findings"]
-        for w in range(len(windows)):
+        for w in range(len(AUDIT_WINDOWS)):
             findings += check_rank_logs([rc["logs"][w] for rc in per_rank], f"{label}/w{w}")
         summary["cases"].append({
             "label": label, "mirrored": per_rank[0]["mirrored"],
             "collectives": sum(len(log) for rc in per_rank for log in rc["logs"]),
             "stats_rank0": per_rank[0]["stats"],
         })
-    if sweep_backend is not None:
-        for r, res in enumerate(results):
-            findings += _sweep_findings(res["sweep"], f"budget/relayout-sweep/{sweep_backend}/d{d_n}/rank{r}")
-        summary["sweep"] = [res["sweep"] for res in results]
+    for r, res in enumerate(results):
+        findings += _sweep_findings(res["sweep"], f"budget/relayout-sweep/{sweep_backend}/d{d_n}/rank{r}")
+    summary["sweep"] = [res["sweep"] for res in results]
     return findings, summary
 
 
@@ -1181,20 +1196,19 @@ def default_audit_graph():
 
 
 def audit_tree(
-    pg=None, *, device="cuda", backends=None, d_n: int = AUDIT_MESH_WIDTH,
-    summary: dict | None = None,
+    pg=None, *, device="cuda", d_n: int = AUDIT_MESH_WIDTH, summary: dict | None = None,
 ) -> list[Finding]:
     """The full matrix on ``device`` (a card by default; a CUDA device
-    without CUDA raises): every builtin program x backend x {dense, mesh},
-    the mirrored mesh window per program and backend, the relayout sweep
-    (one ``run_ranks`` launch for all of the mesh), the layout-budget sweeps
-    (placements, and the mirror knob) and the delta cycle.  ``backends``
-    defaults to ``AUDIT_BACKENDS`` on a card and ``("torch",)`` on the CPU.
+    without CUDA raises) over ``pg`` (``default_audit_graph()`` when None):
+    every builtin program x backend x {dense, mesh}, the mirrored mesh
+    window per program and backend, the relayout sweep (one ``run_ranks``
+    launch of ``d_n`` ranks for all of the mesh), the layout-budget sweeps
+    (placements, and the mirror knob) and the delta cycle.  The backends
+    are ``AUDIT_BACKENDS`` on a card and ``torch`` alone on the CPU.
     ``summary``, when given, receives what was audited: the dense windows'
     counts by ``program/backend`` and the mesh launch's summary."""
     device = resolve_device(device)
-    if backends is None:
-        backends = tuple(b for b in AUDIT_BACKENDS if b != "cuda" or device.type == "cuda")
+    backends = tuple(b for b in AUDIT_BACKENDS if b != "cuda" or device.type == "cuda")
     pg = pg if pg is not None else default_audit_graph()
     summary = {} if summary is None else summary
     summary["dense"] = {}
@@ -1203,9 +1217,7 @@ def audit_tree(
         for backend in backends:
             f, summary["dense"][f"{name}/{backend}"] = audit_dense(pg, ctor(), backend, device=device)
             findings += f
-    f, summary["mesh"] = audit_mesh_matrix(
-        pg, backends=backends, d_n=d_n, device=device.type, sweep_backend=backends[-1],
-    )
+    f, summary["mesh"] = audit_mesh_matrix(pg, device=device, backends=backends, d_n=d_n)
     findings += f
     findings += audit_recompile_budget(pg, d_n=d_n)
     findings += audit_recompile_budget(

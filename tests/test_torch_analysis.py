@@ -31,7 +31,7 @@ from repro.graph.structs import mesh_layout_key as ref_mesh_layout_key
 from repro_torch.analysis import __main__ as analysis_main
 from repro_torch.analysis import trace_audit
 from repro_torch.analysis.findings import RULES, Finding, render
-from repro_torch.analysis.fixtures import ALL_FIXTURES, simulated_window_findings
+from repro_torch.analysis.fixtures import ALL_FIXTURES, run_fixtures, simulated_window_findings
 from repro_torch.analysis.lint import lint_paths, lint_source
 from repro_torch.analysis.registry import AUDIT_MESH_WIDTH, AUDIT_MIRROR_DEGREE, HOT_PATH_FUNCTIONS
 from repro_torch.graph.program import BUILTIN_PROGRAMS
@@ -66,7 +66,6 @@ def test_audit_tree_is_clean(tree, name, engine):
     if engine == "dense":
         prefix = f"dense/{name}/torch/"
         rows = summary["dense"][f"{name}/torch"]
-        assert len(rows) == len(trace_audit.AUDIT_WINDOWS)
         assert rows[0]["reads"] > 0 and rows[0]["transfers_per_pull"] == 7
     else:
         tag = f"/mirror{AUDIT_MIRROR_DEGREE}" if engine == "mesh-mirrored" else ""
@@ -74,6 +73,11 @@ def test_audit_tree_is_clean(tree, name, engine):
         (case,) = [c for c in summary["mesh"]["cases"] if c["label"] + "/" == prefix]
         assert case["mirrored"] == (engine == "mesh-mirrored")
         assert case["collectives"] > 0
+        rows = case["stats_rank0"]
+    # every window runs supersteps: the later one is audited on real work
+    assert len(rows) == len(trace_audit.AUDIT_WINDOWS) > 1
+    assert all(r["inner_iters"] > 0 and r["launches"] == 0 for r in rows), rows
+    assert all(r["partition_launches"] == 0 for r in rows[1:]), rows
     mine = [f for f in findings if f.where.startswith(prefix)]
     assert not mine, render(mine)
 
@@ -131,6 +135,7 @@ def test_lint_flags_the_reads_the_repair_removed(path, old, new):
     ("n = int(cand.numel())", False),
     ("if cand is None:\n        return base", False),
     ("if self._any(cand):\n        return base", False),
+    ("while self._any(cand) and _to_host(base)[0] > 0:\n        base = base - 1", False),
     ("rows = np.unique(host_rows)", False),
     ("out = torch.repeat_interleave(cand, counts, output_size=9)", False),
     ("if cand.any():\n        return base", True),
@@ -145,15 +150,40 @@ def test_lint_flags_the_reads_the_repair_removed(path, old, new):
     ("x = cand[cand > 0]", True),
     ("x = base[~mask]", True),
     ("while base.min() > 0:\n        base = base - 1", True),
+    # a counted helper's arguments are linted like any other expression
+    ("if self._any(cand.sum().item() > 0):\n        return base", True),
+    ("if self._any(bool(cand.max())):\n        return base", True),
+    # a counted helper counts only in the form and file it is defined in
+    ("if _any(cand):\n        return base", True),
+    ("if read_any(cand):\n        return base", True),
 ])
 def test_lint_hot_path_rule(snippet, flagged):
+    """Hot-path reads in a function linted as if it were in
+    ``graph/traversal.py``, whose counted helpers are ``self._any`` and
+    ``_to_host``."""
     body = "\n".join("    " + ln for ln in snippet.splitlines())
     source = (
         "import numpy as np\nimport torch\n\n_USED = (np, torch)\n\n\n"
         f"def hot(self, cand, base, host_rows, counts, mask):\n{body}\n    return base\n"
     )
-    findings = lint_source(source, "fixture/hot.py", hot_overrides=[("hot", ("cand", "base"))])
+    findings = lint_source(source, "fixture/graph/traversal.py",
+                           hot_overrides=[("hot", ("cand", "base"))])
     assert [f.rule for f in findings] == (["AL01"] if flagged else []), render(findings)
+
+
+def test_lint_skips_only_the_counted_helpers_own_body():
+    """A helper named like a counted one in another file is linted as hot
+    path; the real helper nested in the mesh window is not."""
+    source = (
+        "def window(self, dist, frontier, nst0):\n"
+        "    def read_any(t):\n        return bool(t.any().item())\n"
+        "    return read_any(frontier)\n"
+    )
+    assert lint_source(source, "src/repro_torch/graph/mesh_exchange.py") == []
+    findings = lint_source(source, "fixture/elsewhere.py",
+                           hot_overrides=[("window", ("dist", "frontier", "nst0"))])
+    assert [f.rule for f in findings] == ["AL01"], render(findings)
+    assert "'.item()'" in findings[0].message
 
 
 def test_registry_names_functions_that_exist():
@@ -216,6 +246,22 @@ def test_cli_defaults_to_the_card():
         analysis_main.main([])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         analysis_main.main(["--fixtures"])
+
+
+@pytest.mark.parametrize("entry", [
+    lambda pg: trace_audit.audit_tree(pg),
+    lambda pg: trace_audit.audit_dense(pg, BUILTIN_PROGRAMS["bfs"](), "torch"),
+    lambda pg: trace_audit.audit_mesh_matrix(pg),
+    lambda pg: trace_audit.control_extra_read(pg, "torch"),
+    lambda pg: run_fixtures(),
+], ids=["audit_tree", "audit_dense", "audit_mesh_matrix", "control_extra_read", "run_fixtures"])
+def test_entry_points_default_to_the_card(pg, entry):
+    """Left without ``device``, every public entry point audits on the card:
+    without CUDA it raises, and never audits the plain path on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the refusal cannot show here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry(pg)
 
 
 # -- controls -----------------------------------------------------------------

@@ -907,17 +907,22 @@ def test_lm_train_step_on_the_card_takes_the_plain_attention(cuda_device):
 def test_audit_tree_on_the_card_is_clean(cuda_device):
     """Every program on both backends, dense and on 4 gloo ranks sharing
     the card (unmirrored and mirrored), the relayout sweep, the layout
-    budgets and the delta cycle: no finding, and the ``cuda`` backend's
-    windows launched the relax kernel."""
+    budgets and the delta cycle: no finding, and every window of the
+    ``cuda`` backend launched the relax kernel, the later ones without a
+    second ``row_ptr`` split."""
     from repro_torch.analysis.findings import render
-    from repro_torch.analysis.trace_audit import audit_tree
+    from repro_torch.analysis.trace_audit import AUDIT_WINDOWS, audit_tree
 
     summary = {}
     findings = audit_tree(device=cuda_device, summary=summary)
     assert not findings, render(findings)
     cuda_rows = [rows for key, rows in summary["dense"].items() if key.endswith("/cuda")]
-    assert len(cuda_rows) == 4 and all(rows[0]["launches"] > 0 for rows in cuda_rows)
-    assert all(rows[0]["transfers"] == 7 for rows in cuda_rows)
+    cuda_rows += [c["stats_rank0"] for c in summary["mesh"]["cases"] if "/cuda/" in c["label"]]
+    assert len(cuda_rows) == 4 + 8
+    for rows in cuda_rows:
+        assert len(rows) == len(AUDIT_WINDOWS) and all(r["transfers"] == 7 for r in rows)
+        assert all(r["inner_iters"] > 0 and r["launches"] > 0 for r in rows), rows
+        assert all(r["partition_launches"] == 0 for r in rows[1:]), rows
 
 
 @pytest.mark.cuda
