@@ -62,7 +62,7 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 train kinds, ``optim``, ``ckpt``), each model at its
                 published config: TinyLlama-1.1B's train_4k (22 layers, d
                 2048, bfloat16, remat on, S = 4,096, the global batch cut
-                from 256 to 4) for 4 steps from --seed, timed by CUDA
+                from 256 to 4) for 3 steps from --seed, timed by CUDA
                 events, its peak read and one more step profiled; gated on
                 step 1 against the same model in float32 on the ``torch``
                 backend (the loss, the gradient norm and attention's
@@ -80,10 +80,31 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 moves.  DeepFM's train_batch (65,536 rows, 39 x 1 M x 10) for
                 5 steps.  PNA at ogb_products is reckoned, not run: its
                 backward keeps more than the card holds.
-  7. graph   -- ``rmat_graph(22, 8, seed=42)`` (about 4.2 M vertices and
+  7. train_dp -- data-parallel training (``launch.mesh.make_host_mesh``'s
+                ``(data, model = 1)`` mesh, the train bundles' ``mesh=``,
+                ``train()`` inside a rank) on 2 ranks that share the card
+                over gloo, every case in one ``run_ranks`` launch: TinyLlama
+                as the train phase runs it (the global batch of 4, 2 rows a
+                rank, the same seed and batches) for 3 steps, step 1's loss
+                and gradient norm within 1e-5 and 1e-4 of the train phase's
+                one-rank step 1 (a control, rank 0's gradient norm of its own
+                rows before the mean, must fail); DeepFM's train_batch at its
+                published config through ``train()``, 3 steps, each held the
+                same way to the train phase's; every rank's state equal bit
+                for bit after the steps (per-tensor digests); step wall,
+                collective calls, bytes and seconds, their share, peak
+                device bytes per rank.  Then the trainer's restart across
+                rank counts at DeepSeek-V3's reduced config: 4 steps
+                checkpointed every 2 on 2 ranks; a crash at step 3 and its
+                resume equal that run bit for bit; its last checkpoint
+                resumed here on 1 rank restores the 2-rank state bit for bit
+                and its 2 more losses stay within 1e-3 of the 2 ranks'.  No kernel is new here: the LM train step takes the
+                plain attention (the flash kernel has no backward; 0
+                launches) and DeepFM's dense bags are gathers.
+  8. graph   -- ``rmat_graph(22, 8, seed=42)`` (about 4.2 M vertices and
                 68 M directed edges, SNAP soc-LiveJournal1's size) split by
                 ``bfs_grow_partition(..., 8, seed=1)``; host build times.
-  8. gnn     -- the GNN stack (``repro_torch.models.gnn``), every segment
+  9. gnn     -- the GNN stack (``repro_torch.models.gnn``), every segment
                 sum on the kernel, each model's launches counted from 0:
                 PNA at its full config (4 layers, d 75, 4 aggregators x 3
                 scalers) full-batch at ogbn-products' size (N = 2,449,029,
@@ -98,13 +119,13 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 ``torch`` and invariant under two rotations; MeshGraphNet
                 (15 layers, d 128) on one minibatch_lg batch (1,024 seeds,
                 fanouts 15 and 10, 602 features) sampled from the graph of
-                phase 7; and halo PNA on 2 ranks sharing the card over
+                phase 8; and halo PNA on 2 ranks sharing the card over
                 gloo, on a scale-16 R-MAT graph split in two, against the
                 dense forward, with one ``all_to_all`` a layer.
-  9. segment_sum_livj -- ``sorted_segment_sum`` over that graph's sorted
+  10. segment_sum_livj -- ``sorted_segment_sum`` over that graph's sorted
                 destinations (an R-MAT in-degree spread, D = 128), held and
                 timed as in phase 2.
-  10. kernel  -- the CUDA relax kernel (every template instantiation the
+  11. kernel  -- the CUDA relax kernel (every template instantiation the
                 main path runs) held against its plain PyTorch version at the
                 main path's shapes (the local and the remote layout) and at
                 the degenerate shapes (no edges, n < 8, one edge), and
@@ -115,20 +136,20 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 bound and one ``scatter_reduce`` call.  Then
                 ``relax_phases``: a diagnosis build of the kernel
                 (``RELAX_PHASE_CLOCKS``) splits a block's cycles by phase.
-  11. oracle  -- BFS, SSSP, WCC and PageRank on a small graph on the card,
+  12. oracle  -- BFS, SSSP, WCC and PageRank on a small graph on the card,
                 held against the port's numpy oracles.
-  12. slice   -- the main path: BFS from 4 sources, WCC and 20 PageRank
+  13. slice   -- the main path: BFS from 4 sources, WCC and 20 PageRank
                 iterations through ``bsp.run_program`` on the ``cuda``
                 backend, with the kernel's launch counts set to 0 just
                 before and read just after.  Then the same runs on the
                 ``torch`` backend on the same card: state bit-identical for
                 BFS and WCC, allclose for PageRank, traces exact.  BFS
                 source 0 is held against the host BFS ``_bfs_hops``.
-  13. pipeline -- the BFS trace becomes the time function A, scaled to
+  14. pipeline -- the BFS trace becomes the time function A, scaled to
                 LIVJ's T_Min of 21 s; every placement strategy is billed at
                 delta = 60 s; ``predict_time_function`` gives the
                 metagraph's a-priori plan.
-  14. elastic -- the plan executed: ``ElasticBSPExecutor`` runs BFS from
+  15. elastic -- the plan executed: ``ElasticBSPExecutor`` runs BFS from
                 vertex 0 on LIVJ/8P, 8 supersteps per window, once per
                 placement strategy, each planned from the metagraph
                 prediction (in the trace's seconds) and re-planned online
@@ -145,7 +166,7 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 ``repartition=`` variant (on a cut graph where one
                 repartition pass over LIVJ/8P would take over 30 s), which
                 must move vertices.
-  15. serve  -- ``TraversalService`` answers 16 BFS queries (8 rows a
+  16. serve  -- ``TraversalService`` answers 16 BFS queries (8 rows a
                 batch, 8 supersteps a window): first all at t = 0 on all 8
                 VMs, which gives the highest rate mu it sustains, then Poisson
                 arrivals at 0.25 mu and 0.9 mu, elastic and static; launch
@@ -154,14 +175,14 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 ``torch`` backends' reports identical and every completed
                 query's state row too, the first 2 also equal to the host
                 BFS.
-  16. profile -- one more BFS traversal under ``torch.profiler``: the
+  17. profile -- one more BFS traversal under ``torch.profiler``: the
                 card's busy share, the kernels that take its time, and the
                 relax reduction's three kernels (partition, reduction,
                 fix-up) found by name.
-  17. relax_entries -- the two min-only entries (``bfs_relax_csr``,
+  18. relax_entries -- the two min-only entries (``bfs_relax_csr``,
                 ``bfs_relax``) at S=1 over the local edges, each against the
                 ``torch`` backend, timed beside the kernel alone.
-  18. mesh   -- the multi-GPU engine (``repro_torch.dist``): LIVJ/8P on D = 8
+  19. mesh   -- the multi-GPU engine (``repro_torch.dist``): LIVJ/8P on D = 8
                 ranks (one partition each) and D = 2 (four each), processes
                 that share the one card over gloo (NCCL refuses two ranks on
                 one card), which copies the CUDA payloads through the host.
@@ -185,7 +206,7 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 only where its per-rank rebuilds are projected past the
                 time limit.  Also the relax kernel at the hub rank's D = 8
                 planes.
-  19. analysis -- the port's analysis layer (``repro_torch.analysis``) on
+  20. analysis -- the port's analysis layer (``repro_torch.analysis``) on
                 the card: every program on both backends over the small
                 audit graph (``rmat_graph(6, 4)``, 5 parts), each window's
                 host reads and transfers held to the engine's counters and
@@ -314,7 +335,13 @@ from repro_torch.data.synthetic import InputSpec, make_batch  # noqa: E402
 from repro_torch.launch.serve import serve_batch  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch.steps import build_bundle  # noqa: E402
-from repro_torch.launch.train import state_tree, train  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.train import (  # noqa: E402
+    InjectedCrash,
+    state_digests,
+    state_tree,
+    train,
+)
 from repro_torch.models import attention as lm_attention  # noqa: E402
 from repro_torch.models.attention import gqa_attend, gqa_qkv  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
@@ -518,7 +545,7 @@ RECSYS_BAGS, RECSYS_BAG_MAX = 262_144, 40
 #: bound); the control, attention with its gradient cut (q, k, v detached:
 #: what a forward-only kernel would do without the entry's refusal), must
 #: fail it (measured: gnorm 0.72 off, attention's 1.0).
-TRAIN_LM_ARCH, TRAIN_LM_BATCH, TRAIN_LM_STEPS = "tinyllama-1.1b", 4, 4
+TRAIN_LM_ARCH, TRAIN_LM_BATCH, TRAIN_LM_STEPS = "tinyllama-1.1b", 4, 3
 TRAIN_GATE_RTOL = {"loss": 5e-5, "gnorm": 3e-3, "attn_gnorm": 3e-3}
 #: MeshGraphNet (15 layers, d 128) on minibatch_lg as launch/steps.py sizes
 #: it, TRAIN_GNN_STEPS steps with a checkpoint every TRAIN_GNN_CKPT; then a
@@ -530,6 +557,32 @@ TRAIN_GNN_STEPS, TRAIN_GNN_CKPT, TRAIN_GNN_CRASH = 20, 10, 15
 TRAIN_GNN_PROBE_STEPS = 3
 #: DeepFM's train_batch at its published config
 TRAIN_RECSYS_STEPS = 5
+#: the train_dp phase: data-parallel training (the train bundles on the data
+#: axis of ``launch.mesh.make_host_mesh``) on TRAIN_DP_RANKS ranks sharing
+#: the card over gloo, every case in one launch.  TinyLlama as the train
+#: phase runs it (the global batch of TRAIN_LM_BATCH sequences, so
+#: TRAIN_LM_BATCH / TRAIN_DP_RANKS a rank, the same seed and batches) and
+#: DeepFM's train_batch through ``train()``, TRAIN_DP_STEPS steps each:
+#: TinyLlama's step 1 and DeepFM's every step held to the train phase's
+#: one-rank loss and gradient norm within TRAIN_DP_RTOL (measured on an
+#: H100: loss 8.8e-8 and 1.1e-7, gradient norm 1.1e-6 and 0, about a
+#: hundredth of the bound); the control, rank 0's gradient norm of its own
+#: rows before the mean, must fail it (measured 0.43 and 0.33).  Then
+#: ``train()``'s restart across rank counts at DeepSeek-V3's reduced config
+#: (the card's bfloat16): TRAIN_DP_RESTART[0] steps checkpointed every
+#: TRAIN_DP_RESTART[1] on 2 ranks; a run that crashes at TRAIN_DP_RESTART[2]
+#: and its resume equal it bit for bit; its last checkpoint resumed for
+#: TRAIN_DP_RESTART[3] more steps on 1 rank (in this process) restores the
+#: 2-rank state bit for bit, and its losses stay within
+#: TRAIN_DP_RESTART_RTOL of the same steps resumed on 2 ranks (bfloat16
+#: parameters updated from differently rounded gradients; measured 6.1e-8
+#: and 1.1e-4).
+TRAIN_DP_RANKS, TRAIN_DP_STEPS = 2, 3
+TRAIN_DP_RTOL = {"loss": 1e-5, "gnorm": 1e-4}
+TRAIN_DP_RESTART_RTOL = 1e-3
+TRAIN_DP_RESTART_ARCH = "deepseek-v3-671b"
+TRAIN_DP_RESTART = (4, 2, 3, 2)
+TRAIN_DP_TIMEOUT_S = 900.0
 #: the template instantiations the main path runs, and the program each
 #: serves there: (variant, reduce, dtype, program name)
 MAIN_VARIANTS = (
@@ -1743,7 +1796,8 @@ def _train_recsys(device, seed: int) -> dict:
             "batch": ARCHS["deepfm"].shapes()["train_batch"].batch,
             "config": {"fields": cfg.n_sparse, "rows": cfg.vocab_per_field,
                        "dim": cfg.embed_dim},
-            "losses": out["losses"], "step_ms": 1e3 * float(np.median(out["step_s"][1:])),
+            "losses": out["losses"], "gnorms": out["gnorms"],
+            "step_ms": 1e3 * float(np.median(out["step_s"][1:])),
             "step_ms_each": [1e3 * t for t in out["step_s"]], "peak_device_bytes": peak}
 
 
@@ -1775,6 +1829,216 @@ def phase_train(device, seed: int) -> dict:
            "train: PNA at ogb_products would fit the card; run it")
     line.update(launches=line["gnn"]["launches"], nvidia_smi=_nvidia_smi(),
                 phase_s=time.perf_counter() - t0)
+    return line
+
+
+# -- data-parallel training --------------------------------------------------------
+
+
+def _stats_delta(a: dict, b: dict) -> dict:
+    """The collectives between two ``stats`` snapshots."""
+    return {"calls": {k: v - a["calls"].get(k, 0) for k, v in b["calls"].items()},
+            "bytes": {k: v - a["bytes"].get(k, 0) for k, v in b["bytes"].items()},
+            "seconds": b["seconds"] - a["seconds"]}
+
+
+class _LocalNorm:
+    """Wraps ``launch.steps.all_reduce_grads``: the first call's gradient
+    norm before the mean (this rank's own rows), read once."""
+
+    def __init__(self):
+        self.real = train_steps.all_reduce_grads
+        self.gnorm = None
+
+    def __call__(self, grads, params, mesh):
+        if self.gnorm is None:
+            self.gnorm = float(global_norm(grads.values()))
+        return self.real(grads, params, mesh)
+
+    def __enter__(self):
+        train_steps.all_reduce_grads = self
+        return self
+
+    def __exit__(self, *exc):
+        train_steps.all_reduce_grads = self.real
+
+
+def _rank_peak(mesh, reset: bool = False) -> int | None:
+    """This rank's peak device bytes (None for CPU ranks, as in a rehearsal
+    without a card); ``reset`` starts a new peak."""
+    if mesh.device.type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    if reset:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated()
+
+
+def _dp_lm(mesh, seed: int, cfg, seq_len: int) -> dict:
+    """TinyLlama's train steps on this rank, as ``_train_lm`` runs them on
+    one: the same global batches, this rank's rows taken by the step."""
+    bundle = build_bundle(TRAIN_LM_ARCH, "train_4k", config=cfg, mesh=mesh)
+    state = bundle.init_state_fn(seed)
+    tokens_spec = {"tokens": InputSpec((TRAIN_LM_BATCH, seq_len + 1), torch.int32)}
+    batches = [make_batch(tokens_spec, seed=seed, step=i, bounds=bundle.input_bounds,
+                          device=mesh.device) for i in range(TRAIN_DP_STEPS)]
+    _rank_peak(mesh, reset=True)
+    _zero_flash_counts()
+    before = mesh.data.stats.snapshot()
+    losses, gnorms, wall = [], [], []
+    with _LocalNorm() as local:
+        for b in batches:
+            t0 = time.perf_counter()
+            state, m = bundle.step_fn(state, b)
+            losses.append(float(m["loss"]))  # waits for the step
+            wall.append(time.perf_counter() - t0)
+            gnorms.append(float(m["gnorm"]))
+    stats = _stats_delta(before, mesh.data.stats.snapshot())
+    res = {"losses": losses, "gnorms": gnorms, "local_gnorm_step1": local.gnorm,
+           "step_s_each": wall, "stats": stats,
+           "collective_share": stats["seconds"] / sum(wall),
+           "peak_device_bytes": _rank_peak(mesh),
+           "flash_launches": flash_fwd.launches, "digests": state_digests(state)}
+    del state, batches
+    return res
+
+
+def _dp_recsys(mesh, seed: int, cfg) -> dict:
+    """DeepFM's train_batch through ``train()`` on this rank."""
+    _rank_peak(mesh, reset=True)
+    with _LocalNorm() as local:
+        out = train("deepfm", "train_batch", steps=TRAIN_DP_STEPS, reduced=False, config=cfg,
+                    seed=seed, verbose=False, device=mesh.device)
+    stats = out["stats"]  # the collectives of train()'s own host mesh
+    res = {"losses": out["losses"], "gnorms": out["gnorms"], "local_gnorm_step1": local.gnorm,
+           "step_s_each": out["step_s"], "stats": stats,
+           "collective_share": stats["seconds"] / sum(out["step_s"]),
+           "peak_device_bytes": _rank_peak(mesh),
+           "digests": state_digests(out["final_state"])}
+    del out
+    _rank_peak(mesh, reset=True)
+    return res
+
+
+def _dp_restart(mesh, seed: int, root: str) -> dict:
+    """``train()``'s checkpoints on this rank: straight, a crash and its
+    resume, then the straight run continued (see TRAIN_DP_RESTART)."""
+    n, every, crash_at, more = TRAIN_DP_RESTART
+    kw = dict(seed=seed, verbose=False, ckpt_every=every, device=mesh.device)
+    straight, crashy = f"{root}/straight", f"{root}/crashy"
+    ref = train(TRAIN_DP_RESTART_ARCH, "train_4k", steps=n, ckpt_dir=straight, **kw)
+    crash = None
+    try:
+        train(TRAIN_DP_RESTART_ARCH, "train_4k", steps=n, ckpt_dir=crashy, crash_at=crash_at,
+              **kw)
+    except InjectedCrash as e:
+        crash = str(e)
+    crash_ckpt = latest_step(crashy)
+    out = train(TRAIN_DP_RESTART_ARCH, "train_4k", steps=n, ckpt_dir=crashy, **kw)
+    if mesh.rank == 0:  # the straight run's last checkpoint, kept for one rank
+        shutil.copytree(straight, f"{root}/one")
+    cont = train(TRAIN_DP_RESTART_ARCH, "train_4k", steps=n + more, ckpt_dir=straight, **kw)
+    return {"losses": ref["losses"], "digests": state_digests(ref["final_state"]),
+            "crash": crash, "crash_checkpoint": crash_ckpt,
+            "resumed_from": out["resumed_from"], "resumed_losses": out["losses"],
+            "resumed_digests": state_digests(out["final_state"]),
+            "continued_from": cont["resumed_from"], "continued_losses": cont["losses"]}
+
+
+def _dp_rank(seed: int, root: str, lm_cfg, lm_seq: int, recsys_cfg) -> dict:
+    """One rank of the train_dp launch: every case, at the configs the
+    parent sends (the published ones on the card)."""
+    mesh = make_host_mesh()
+    t0 = time.perf_counter()
+    out = {"mesh": mesh.data.describe(), "shape": mesh.shape,
+           "lm": _dp_lm(mesh, seed, lm_cfg, lm_seq)}
+    out["recsys"] = _dp_recsys(mesh, seed, recsys_cfg)
+    out["restart"] = _dp_restart(mesh, seed, root)
+    out["rank_s"] = time.perf_counter() - t0
+    return out
+
+
+def _dp_off(got: dict, ref: dict, step: int) -> dict:
+    """Each gated value's relative distance at ``step`` (0-based)."""
+    key = {"loss": "losses", "gnorm": "gnorms"}
+    return {k: abs(got[key[k]][step] - ref[key[k]][step]) / abs(ref[key[k]][step])
+            for k in TRAIN_DP_RTOL}
+
+
+def phase_train_dp(device, seed: int, train_line: dict) -> dict:
+    """Data-parallel training on ranks sharing the card (see TRAIN_DP_*);
+    ``train_line`` is the train phase's, the one-rank values."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as root:
+        lm = ARCHS[TRAIN_LM_ARCH]
+        ranks = run_ranks(_dp_rank, TRAIN_DP_RANKS, device=device.type,
+                          timeout=TRAIN_DP_TIMEOUT_S,
+                          args=(seed, root, lm.config, lm.shapes()["train_4k"].seq_len,
+                                ARCHS["deepfm"].config))
+        launch_s = time.perf_counter() - t0
+        r0 = ranks[0]
+        line = {"ranks": TRAIN_DP_RANKS, "backend": ranks.backend, "devices": ranks.devices,
+                "mesh": r0["mesh"], "shape": r0["shape"], "launch_s": launch_s,
+                "rank_s": [r["rank_s"] for r in ranks]}
+        _check(r0["shape"] == {"data": TRAIN_DP_RANKS, "model": 1},
+               f"train_dp: the host mesh is {r0['shape']}")
+        for case, ref, steps in (("lm", train_line["lm"], 1),
+                                 ("recsys", train_line["recsys"], TRAIN_DP_STEPS)):
+            got = r0[case]
+            off = [_dp_off(got, ref, i) for i in range(steps)]
+            ctrl = abs(got["local_gnorm_step1"] - ref["gnorms"][0]) / abs(ref["gnorms"][0])
+            _check(all(o[k] <= TRAIN_DP_RTOL[k] for o in off for k in o),
+                   f"train_dp {case}: {TRAIN_DP_RANKS} ranks off the one-rank step by {off} "
+                   f"(bound {TRAIN_DP_RTOL})")
+            _check(ctrl > TRAIN_DP_RTOL["gnorm"],
+                   f"train_dp {case}: the control (rank 0's own rows' gradient) passed: {ctrl}")
+            _check(all(r[case]["digests"] == got["digests"] for r in ranks),
+                   f"train_dp {case}: the ranks' states differ after {TRAIN_DP_STEPS} steps")
+            line[case] = {k: v for k, v in got.items() if k != "digests"} | {
+                "one_rank": {"losses": ref["losses"][:TRAIN_DP_STEPS],
+                             "gnorms": ref["gnorms"][:TRAIN_DP_STEPS]},
+                "off": off, "control_off": ctrl, "ranks_identical": True,
+                "peak_device_bytes_each": [r[case]["peak_device_bytes"] for r in ranks],
+                "step_s": float(np.median(got["step_s_each"][1:]))}
+        _check(line["lm"]["flash_launches"] == 0, "train_dp lm: the flash kernel ran under grad")
+        line["lm"]["rtol"] = TRAIN_DP_RTOL
+
+        # -- the restart across rank counts --
+        n, every, crash_at, more = TRAIN_DP_RESTART
+        rs = r0["restart"]
+        _check(all(r["restart"] == rs for r in ranks), "train_dp restart: the ranks disagree")
+        _check(rs["crash"] == f"injected crash at step {crash_at}"
+               and rs["crash_checkpoint"] == every and rs["resumed_from"] == every,
+               f"train_dp restart: crash {rs['crash']!r}, checkpoint {rs['crash_checkpoint']}")
+        _check(rs["resumed_losses"] == rs["losses"][every:]
+               and rs["resumed_digests"] == rs["digests"],
+               "train_dp restart: the 2-rank resume differs from the straight run")
+        _check(rs["continued_from"] == n,
+               f"train_dp restart: the 2-rank continuation resumed from {rs['continued_from']}")
+        # one rank resumes the 2-rank checkpoint: with no step left to run,
+        # its final state is the restored one
+        kw = dict(ckpt_dir=f"{root}/one", seed=seed, verbose=False, device=device, ranks=1)
+        restored = train(TRAIN_DP_RESTART_ARCH, "train_4k", steps=n, **kw)
+        _check(restored["resumed_from"] == n and not restored["losses"]
+               and state_digests(restored["final_state"]) == rs["digests"],
+               "train_dp restart: one rank restored another state than the 2 ranks'")
+        del restored
+        one = train(TRAIN_DP_RESTART_ARCH, "train_4k", steps=n + more, **kw)
+    one_off = [abs(a - b) / abs(b) for a, b in zip(one["losses"], rs["continued_losses"])]
+    _check(one["resumed_from"] == n,
+           f"train_dp restart: one rank resumed from {one['resumed_from']}, not {n}")
+    _check(all(o <= TRAIN_DP_RESTART_RTOL for o in one_off),
+           f"train_dp restart: one rank's losses off the 2 ranks' by {one_off}")
+    line["restart"] = {
+        "arch": TRAIN_DP_RESTART_ARCH, "config": "reduced", "steps": n, "ckpt_every": every,
+        "crash_at": crash_at, "losses": rs["losses"], "resumed_losses": rs["resumed_losses"],
+        "bit_exact": True, "one_rank": {"from": n, "losses": one["losses"],
+                                        "two_rank_losses": rs["continued_losses"],
+                                        "off": one_off, "rtol": TRAIN_DP_RESTART_RTOL,
+                                        "restored_bit_exact": True}}
+    line.update(nvidia_smi=_nvidia_smi(), phase_s=time.perf_counter() - t0)
     return line
 
 
@@ -3610,6 +3874,8 @@ def main(argv=None) -> int:
     _emit("recsys", report["recsys"])
     report["train"] = phase_train(device, args.seed)
     _emit("train", report["train"])
+    report["train_dp"] = phase_train_dp(device, args.seed, report["train"])
+    _emit("train_dp", report["train_dp"])
     pg, report["graph"] = build_graph(args.scale, LIVJ_PARTS)
     _emit("graph", report["graph"])
     report["gnn"], gnn_case = phase_gnn(pg, device, args.seed, args.scale)

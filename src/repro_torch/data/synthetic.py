@@ -12,6 +12,9 @@ batch's device by a ``torch.Generator`` seeded from ``(seed, step,
 input)``: a full-size graph batch holds a hundred million of them, which
 the host would take seconds to draw each step.  The CPU's stream and a
 card's differ.
+
+Data-parallel ranks all draw the global batch and take their rows of it
+(``shard_batch``), so a shard is exactly rows of the one-rank batch.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import dp_size
 from repro_torch.models.common import model_device
 
 
@@ -66,6 +70,22 @@ def make_batch(abstract_inputs: dict, *, seed: int, step: int, bounds: dict | No
             continue
         out[name] = torch.as_tensor(np.asarray(arr), device=device).to(dtype)
     return out
+
+
+def shard_batch(batch: dict, mesh) -> dict:
+    """This data rank's rows of a global batch: rank r of D takes rows
+    ``[r*B/D, (r+1)*B/D)`` of every input (the reference's ``P(dp, ...)``
+    placement).  A batch of B rows that D ranks cannot split evenly
+    raises."""
+    d = dp_size(mesh)
+    rows = {int(t.shape[0]) for t in batch.values()}
+    if len(rows) != 1:
+        raise ValueError(f"a batch's inputs disagree on their rows: {sorted(rows)}")
+    (b,) = rows
+    if b % d:
+        raise ValueError(f"a batch of {b} rows cannot be split over {d} data ranks")
+    lo = mesh.rank * (b // d)
+    return {name: t[lo:lo + b // d] for name, t in batch.items()}
 
 
 def _default_bound(name: str) -> int:

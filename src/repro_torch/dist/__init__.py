@@ -19,8 +19,9 @@ The JAX package drives every mesh device from one controller with
   compression -- ``compressed_psum``: an int8-quantized sum over the mesh
               with error feedback.
 
-``sharding`` also keeps the reference's parameter rule tables (LM, GNN,
-recsys) as data.
+``sharding`` also holds the data axes of a mesh (``dp_axes``, ``dp_size``)
+and the data-parallel gradient mean (``all_reduce_grads``), and keeps the
+reference's parameter rule tables (LM, GNN, recsys) as data.
 """
 
 from repro_torch.dist.sharding import CollectiveStats, PartitionMesh, partition_mesh

@@ -22,6 +22,12 @@ counted and timed in one place (``CollectiveStats``):
 ``partition_mesh(1)`` outside a launched rank is a legal one-rank mesh; the
 engine takes its dense path for it.
 
+Data-parallel training (``launch.mesh.make_host_mesh``'s ``("data",
+"model")`` mesh, ``launch.steps``) reads two more things here: ``dp_axes``
+and ``dp_size``, the batch axes of a mesh and their ranks, and
+``all_reduce_grads``, the data axis's gradient mean, summed bucket by
+bucket through ``PartitionMesh.all_reduce`` so each call is counted.
+
 The module also keeps the reference's parameter rule tables
 (``lm_param_specs``, ``gnn_param_specs``, ``recsys_param_specs``) as data:
 parameter name -> mesh-axis tuple.
@@ -144,6 +150,12 @@ class PartitionMesh:
         self.stats.add("all_gather", h.numel() * h.element_size(), time.perf_counter() - t0)
         return _unwire(out, t.dtype)
 
+    def barrier(self) -> None:
+        """Every rank waits here until all have arrived."""
+        t0 = time.perf_counter()
+        dist.barrier(group=self.group)
+        self.stats.add("barrier", 0, time.perf_counter() - t0)
+
     def gather_host(self, a: np.ndarray) -> np.ndarray:
         """A small host array of the same shape and dtype on every rank ->
         ``[D, ...]`` on the host (``all_gather`` on this rank's device)."""
@@ -196,6 +208,77 @@ def _check_device(dev: torch.device) -> None:
         raise RuntimeError(
             "a CUDA mesh was requested but CUDA is not available; pass device='cpu'"
         )
+
+
+# ---------------------------------------------------------------------------
+# the data axes and the gradient sum over them
+# ---------------------------------------------------------------------------
+
+#: batch-like axes (the reference's ``_BATCH_AXES`` less ``pod``, which only
+#: its production mesh has)
+_BATCH_AXES = ("data",)
+
+#: the most bytes one gradient all-reduce carries: ``all_reduce`` clones its
+#: input, so a bucket costs twice its size on the device while it is summed
+GRAD_BUCKET_BYTES = 256 << 20
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    """The batch/data-parallel axes present in ``mesh`` (always a tuple)."""
+    return tuple(a for a in _BATCH_AXES if a in mesh.axis_names)
+
+
+def dp_size(mesh) -> int:
+    """The ranks along ``mesh``'s data axis: how many shards a batch takes."""
+    return mesh.data.world_size
+
+
+def all_reduce_grads(named_grads: dict, params: dict, mesh: PartitionMesh) -> dict:
+    """The mean over ``mesh``'s ranks of each rank's gradients.
+
+    ``named_grads`` maps each name of ``params`` (name -> parameter, in an
+    order every rank shares) to its gradient, or None where autograd gave
+    none on this rank: it counts as zeros, so every rank sends the same
+    bytes.  The gradients of one dtype are laid end to end and cut into
+    buckets of at most ``GRAD_BUCKET_BYTES``, a tensor split across two
+    where it straddles a cut; each bucket is summed by one
+    ``mesh.all_reduce(op="sum")`` in that dtype, divided by the rank count
+    and written back into the gradients, in place.  Returns name ->
+    gradient, a zero tensor where the rank had None.
+    """
+    out = {}
+    for name, p in params.items():
+        g = named_grads.get(name)
+        out[name] = torch.zeros_like(p) if g is None else g.contiguous()
+    by_dtype: dict = {}
+    for g in out.values():
+        by_dtype.setdefault(g.dtype, []).append(g.view(-1))
+    for dtype in sorted(by_dtype, key=str):  # one order on every rank
+        cap = max(1, GRAD_BUCKET_BYTES // torch.empty((), dtype=dtype).element_size())
+        pieces, n = [], 0
+        for flat in by_dtype[dtype]:
+            off = 0
+            while off < flat.numel():
+                take = min(flat.numel() - off, cap - n)
+                pieces.append(flat[off:off + take])
+                n += take
+                off += take
+                if n == cap:
+                    _mean_bucket(pieces, mesh)
+                    pieces, n = [], 0
+        if pieces:
+            _mean_bucket(pieces, mesh)
+    return out
+
+
+def _mean_bucket(pieces: list, mesh: PartitionMesh) -> None:
+    bucket = torch.cat(pieces) if len(pieces) > 1 else pieces[0]
+    total = mesh.all_reduce(bucket, op="sum")
+    total.div_(mesh.world_size)
+    off = 0
+    for piece in pieces:
+        piece.copy_(total[off:off + piece.numel()])
+        off += piece.numel()
 
 
 # ---------------------------------------------------------------------------

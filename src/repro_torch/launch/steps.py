@@ -23,8 +23,23 @@ seeded state.
 Every step runs on the bundle's device (the card unless the caller asks
 for the CPU), its kernels chosen as ``models`` chooses them: on a card the
 segment-sum kernel, and the flash kernel only where no gradient is asked
-for; the serving steps under ``torch.inference_mode()``.  There are no
-``PartitionSpec``s: one device holds the model.
+for; the serving steps under ``torch.inference_mode()``.
+
+``mesh=`` (``launch.mesh.make_host_mesh``) places a train step on the data
+axis of a ``(data = D, model = 1)`` mesh, the reference's batch specs in
+behaviour: every rank holds the whole model and optimizer state and takes
+the global batch; the step takes the rank's rows of it (the reference's
+``P(dp, None)``; an LM batch D cannot split raises, a recsys batch is then
+replicated, as ``_fit_specs`` leaves it), the local mean loss's gradients,
+their mean over the ranks (``dist.sharding.all_reduce_grads``) and then
+AdamW, whose clip reads the global norm; the loss returned is the mean over
+the ranks, and an MoE layer's groups and loads are the global batch's
+(``models.moe``), so the router bias moves as on one rank.  One step on D
+ranks equals the one-rank step on the same global batch up to float
+reassociation, and the ranks' states stay equal bit for bit.  There are no
+parameter ``PartitionSpec``s yet (the ``model`` axis and FSDP are ROADMAP
+Queue A item 1); GNN train steps and the serving kinds on D > 1 ranks
+raise (items 3 and 2).  A one-rank mesh is ``mesh=None``.
 """
 
 from __future__ import annotations
@@ -38,7 +53,8 @@ import torch
 from repro_torch.configs import ARCHS, ArchSpec
 from repro_torch.configs.base import GraphShape, LMShape, RecsysShape
 from repro_torch.configs.registry import reduced_config
-from repro_torch.data.synthetic import InputSpec
+from repro_torch.data.synthetic import InputSpec, shard_batch
+from repro_torch.dist.sharding import all_reduce_grads, dp_size
 from repro_torch.kernels.segment_sum import segment_sum
 from repro_torch.models.common import model_device, top_k
 from repro_torch.models.gnn import MACE, PNA, DimeNet, MeshGraphNet
@@ -74,23 +90,35 @@ def _pad(n: int, m: int = 512) -> int:
     return (n + m - 1) // m * m
 
 
-def _train_step(loss_of: Callable, opt_cfg: AdamWConfig, after: Callable | None = None):
+def _train_step(loss_of: Callable, opt_cfg: AdamWConfig, after: Callable | None = None, *,
+                mesh=None, shard: Callable = shard_batch):
     """``(state, batch) -> (state, {"loss", "gnorm"})``: ``loss_of(model,
     batch) -> (loss, aux)`` differentiated by autograd, one AdamW update in
-    place, then ``after(model, aux)`` (outside the gradient path)."""
+    place, then ``after(model, aux)`` (outside the gradient path).  On a
+    ``mesh`` (of D > 1 data ranks: ``build_bundle`` passes None for one):
+    ``shard(batch, mesh)`` first, the gradients averaged over the ranks
+    before the update, and the loss returned their mean."""
+    dp = mesh is not None
 
     def step(state, batch):
         model = state["params"]
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        if dp:
+            batch = shard(batch, mesh)
         with torch.enable_grad():
             loss, aux = loss_of(model, batch)
             grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
-        gnorm = adamw_update(model, {n: g for (n, _), g in zip(named, grads)},
-                             state["opt"], opt_cfg)
+        grads = {n: g for (n, _), g in zip(named, grads)}
+        loss = loss.detach()
+        if dp:
+            # the sum comes before the update: AdamW clips by the global norm
+            grads = all_reduce_grads(grads, dict(named), mesh.data)
+            loss = mesh.data.all_reduce(loss, op="sum") / dp_size(mesh)
+        gnorm = adamw_update(model, grads, state["opt"], opt_cfg)
         if after is not None:
             with torch.no_grad():
                 after(model, aux)
-        return state, {"loss": loss.detach(), "gnorm": gnorm}
+        return state, {"loss": loss, "gnorm": gnorm}
 
     return step
 
@@ -109,7 +137,7 @@ def _train_init(make_model: Callable[[int], torch.nn.Module], opt_cfg: AdamWConf
 
 
 def _lm_bundle(spec: ArchSpec, shape: LMShape, *, reduced: bool, config,
-               device) -> StepBundle:
+               device, mesh) -> StepBundle:
     cfg = config or (reduced_config(spec) if reduced else spec.config)
     if reduced:
         shape = LMShape(shape.name, seq_len=32, global_batch=4, kind=shape.kind)
@@ -125,18 +153,19 @@ def _lm_bundle(spec: ArchSpec, shape: LMShape, *, reduced: bool, config,
         opt_cfg = AdamWConfig(moment_dtype=moment_dtype)
 
         def loss_of(model, batch):
-            loss, stats = lm_loss_and_stats(model, batch["tokens"])
+            loss, stats = lm_loss_and_stats(model, batch["tokens"], mesh=mesh)
             return loss, stats["moe_loads"]
 
         def move_router_bias(model, loads):
             # DeepSeek-V3 aux-free balancing: each layer's bias moves against
-            # its observed expert load, outside the gradient path
+            # its observed expert load (the global batch's on a mesh),
+            # outside the gradient path
             if cfg.moe and cfg.moe.aux_free_bias and loads is not None:
                 for layer, load in zip(model.moe_layers, loads):
                     layer.moe.router_bias.copy_(update_router_bias(layer.moe.router_bias, load))
 
         return StepBundle(
-            name=name, step_fn=_train_step(loss_of, opt_cfg, move_router_bias),
+            name=name, step_fn=_train_step(loss_of, opt_cfg, move_router_bias, mesh=mesh),
             abstract_inputs={"tokens": InputSpec((shape.global_batch, shape.seq_len + 1),
                                                  torch.int32)},
             init_state_fn=_train_init(init_params, opt_cfg),
@@ -294,8 +323,16 @@ def _gnn_bundle(spec: ArchSpec, shape: GraphShape, *, reduced: bool, config,
 # ---------------------------------------------------------------------------
 
 
+def _rows_or_replicas(batch: dict, mesh) -> dict:
+    """The reference's recsys batch specs: the rows split over the data
+    ranks where they divide the batch, else the whole batch on every
+    rank."""
+    b = next(iter(batch.values())).shape[0]
+    return shard_batch(batch, mesh) if b % dp_size(mesh) == 0 else batch
+
+
 def _recsys_bundle(spec: ArchSpec, shape: RecsysShape, *, reduced: bool, config,
-                   device) -> StepBundle:
+                   device, mesh) -> StepBundle:
     cfg = config or (reduced_config(spec) if reduced else spec.config)
     b = 8 if reduced else shape.batch
     name = f"{spec.arch_id}:{shape.name}"
@@ -313,7 +350,8 @@ def _recsys_bundle(spec: ArchSpec, shape: RecsysShape, *, reduced: bool, config,
             return deepfm_loss(model, batch["ids"], batch["labels"]), None
 
         return StepBundle(
-            name=name, step_fn=_train_step(loss_of, opt_cfg),
+            name=name, step_fn=_train_step(loss_of, opt_cfg, mesh=mesh,
+                                           shard=_rows_or_replicas),
             abstract_inputs={
                 "ids": InputSpec((b, cfg.n_sparse, cfg.multi_hot), torch.int32),
                 "labels": InputSpec((b,), torch.float32),
@@ -360,18 +398,36 @@ def _recsys_bundle(spec: ArchSpec, shape: RecsysShape, *, reduced: bool, config,
 
 
 def build_bundle(arch_id: str, shape_name: str, *, reduced: bool = False, config=None,
-                 device="cuda") -> StepBundle:
+                 device=None, mesh=None) -> StepBundle:
     """The bundle for ``arch_id`` at ``shape_name``: the published config, or
     ``reduced_config`` under ``reduced``, or ``config`` where the caller
     passes one (e.g. the published widths at a cut depth).  An LM's
     parameters are bfloat16, as the reference's; its prefill runs GQA on
     the flash kernel on a card (``models.attention``), its train step the
-    plain attention paths."""
+    plain attention paths.  ``device``: the mesh's where there is one, else
+    the card unless the caller asks for the CPU.  ``mesh``: a train step's
+    data axis (see the module docstring)."""
     spec = ARCHS[arch_id]
     shape = spec.shapes()[shape_name]
-    device = model_device(device)
+    if mesh is not None:
+        if device is not None and torch.device(device).type != mesh.device.type:
+            raise ValueError(f"device {device!r} is not the mesh's {mesh.device}")
+        device = mesh.device
+        if dp_size(mesh) == 1:
+            mesh = None  # one rank: the one-device step, bit for bit
+    device = model_device("cuda" if device is None else device)
+    if mesh is not None:
+        if spec.family == "gnn":
+            raise NotImplementedError(
+                f"{arch_id}: GNN train steps on {dp_size(mesh)} data ranks (edge-sharded "
+                "aggregates) are not ported yet: ROADMAP Queue A item 3")
+        if shape.kind != "train":
+            raise NotImplementedError(
+                f"{arch_id}:{shape_name}: {shape.kind} bundles on a mesh are not ported "
+                "yet: ROADMAP Queue A item 2")
+    kw = dict(reduced=reduced, config=config, device=device)
     if spec.family == "lm":
-        return _lm_bundle(spec, shape, reduced=reduced, config=config, device=device)
+        return _lm_bundle(spec, shape, mesh=mesh, **kw)
     if spec.family == "gnn":
-        return _gnn_bundle(spec, shape, reduced=reduced, config=config, device=device)
-    return _recsys_bundle(spec, shape, reduced=reduced, config=config, device=device)
+        return _gnn_bundle(spec, shape, **kw)
+    return _recsys_bundle(spec, shape, mesh=mesh, **kw)

@@ -14,6 +14,21 @@
   * ``crash_at``: raises at that step, so a test can restart the run; a
     non-finite loss raises too.  Either way the save in flight is drained
     first, so the checkpoint before the failing step is on disk.
+  * data parallel (``ranks``): the steps run on the data axis of
+    ``launch.mesh.make_host_mesh`` (``launch.steps``: each rank its rows of
+    the global batch, the gradients averaged over the ranks).  Outside a
+    process group ``train(..., ranks=D)`` starts D ranks with
+    ``dist.run_ranks`` (NCCL where each has a card of its own, gloo
+    otherwise) and returns rank 0's losses, step times and collective
+    stats, and ``ranks_identical``: every rank's final state equal bit for
+    bit, read off per-tensor digests (no module comes back to the caller).
+    Rank 0 alone writes checkpoints; the ranks meet after its last save.
+    A restore loads the newest checkpoint onto every rank, whatever rank
+    count wrote it: the state is replicated.  A failure every rank meets
+    at the same step (an injected crash, a diverged loss: the loss is the
+    ranks' mean) drains rank 0's save, meets the others and comes back to
+    the caller as the one-rank error -- ``run_ranks`` kills every rank once
+    one exits non-zero, which would cut off the save the restart needs.
 
 The state is the bundle's ``{"params": module, "opt": {...}}``; its
 checkpoint tree is ``{"params": module.state_dict(), "opt": ...}``.
@@ -25,11 +40,22 @@ import argparse
 import time
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt import Checkpointer, ckpt_path, latest_step, restore_pytree
 from repro_torch.configs import ARCHS
 from repro_torch.data.synthetic import graph_batch, make_batch
+from repro_torch.dist.launch import run_ranks
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import build_bundle
+
+#: a launch of ranks, and each collective in it, fails after this long
+RANKS_TIMEOUT_S = 1800.0
+
+
+class InjectedCrash(RuntimeError):
+    """``crash_at``'s failure."""
 
 
 def state_tree(state: dict) -> dict:
@@ -43,6 +69,42 @@ def restore_state(path: str, state: dict) -> None:
     tree = restore_pytree(path, state_tree(state))
     state["params"].load_state_dict(tree["params"])
     state["opt"] = tree["opt"]
+
+
+_INT_OF_WIDTH = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+_DIGEST_CHUNK = 1 << 24
+
+
+@torch.no_grad()
+def tensor_digest(t: torch.Tensor) -> tuple[int, int]:
+    """Two sums over a tensor's bits, on its device: its elements read as
+    integers of their width, plainly and weighted by position, mod 2**64.
+    One changed element changes the first, two swapped ones the second."""
+    words = t.detach().reshape(-1)
+    words = words.view(_INT_OF_WIDTH[words.element_size()])
+    plain = weighted = 0
+    for lo in range(0, words.numel(), _DIGEST_CHUNK):
+        w = words[lo:lo + _DIGEST_CHUNK].to(torch.int64)
+        pos = torch.arange(lo + 1, lo + 1 + w.numel(), dtype=torch.int64, device=w.device)
+        plain += int(w.sum())
+        weighted += int((w * pos).sum())  # int64 sums wrap: equal mod 2**64
+    return plain % 2**64, weighted % 2**64
+
+
+def state_digests(state: dict) -> dict:
+    """``tensor_digest`` of each tensor of a train state's checkpoint tree,
+    keyed by its ``/``-joined path."""
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                out[f"{prefix}{k}"] = tensor_digest(v)
+
+    walk(state_tree(state), "")
+    return out
 
 
 def train(
@@ -59,26 +121,93 @@ def train(
     verbose: bool = True,
     device="cuda",
     config=None,
+    ranks: int | None = None,
 ) -> dict:
     """Train ``arch`` at ``shape`` for ``steps`` steps (counted from 0, a
-    resumed run starting at its checkpoint's step) on ``device``: the card
-    unless the caller asks for the CPU.  Returns ``{"losses",
-    "stragglers", "final_state", "step_s"}``, ``step_s`` each step's host
-    seconds up to its loss on the host."""
-    bundle = build_bundle(arch, shape, reduced=reduced, config=config, device=device)
+    resumed run starting at its checkpoint's step) on ``device`` (the card
+    unless the caller asks for the CPU) over ``ranks`` data-parallel ranks:
+    inside a process group its size (``ranks``, if given, must equal it),
+    outside one 1 unless the caller asks for more.
+
+    Returns ``{"losses", "gnorms", "stragglers", "step_s",
+    "resumed_from"}``, ``step_s`` each step's host seconds up to its loss
+    on the host and ``resumed_from`` the checkpoint's step (or None);
+    ``"final_state"`` too, except from ranks started here; inside a process
+    group also ``"ranks"`` and ``"stats"`` (the rank's collectives), and
+    from ranks started here rank 0's values with ``"ranks_identical"``,
+    ``"digests"`` and ``"backend"``."""
+    kw = dict(arch=arch, shape=shape, steps=steps, reduced=reduced, ckpt_dir=ckpt_dir,
+              ckpt_every=ckpt_every, seed=seed, crash_at=crash_at,
+              step_timeout_factor=step_timeout_factor, verbose=verbose, device=device,
+              config=config)
+    if dist.is_available() and dist.is_initialized():
+        if ranks is not None and int(ranks) != dist.get_world_size():
+            raise ValueError(f"{ranks} ranks asked for inside a {dist.get_world_size()}-rank "
+                             "process group")
+        return _train_here(make_host_mesh(device=device), **kw)
+    n = 1 if ranks is None else int(ranks)
+    if n == 1:
+        return _train_here(None, **kw)
+    return _train_ranks(n, kw)
+
+
+def _train_ranks(n: int, kw: dict) -> dict:
+    """``train`` on ``n`` ranks started here; see the module docstring."""
+    verbose = kw["verbose"]
+    res = run_ranks(_train_rank, n, device=kw["device"], timeout=RANKS_TIMEOUT_S,
+                    kwargs=dict(kw, verbose=False))
+    for r in res:
+        if "error" in r:
+            kind, msg = r["error"]
+            raise {"InjectedCrash": InjectedCrash, "FloatingPointError": FloatingPointError}[
+                kind](msg)
+    out = dict(res[0])
+    out.update(ranks=n, backend=res.backend,
+               ranks_identical=all(r["digests"] == out["digests"] for r in res))
+    if verbose:
+        if out["resumed_from"] is not None:
+            print(f"[train] resumed from step {out['resumed_from']} on {n} ranks")
+        first = kw["steps"] - len(out["losses"])
+        for i, (loss, dt) in enumerate(zip(out["losses"], out["step_s"])):
+            if (first + i) % max(1, kw["steps"] // 10) == 0:
+                print(f"[train] step {first + i}: loss {loss:.4f} ({dt*1e3:.0f} ms)")
+    return out
+
+
+def _train_rank(**kw) -> dict:
+    """One rank of ``_train_ranks``: its ``train`` share, with the final
+    state as digests and a failure every rank meets as its result."""
+    try:
+        out = train(**kw)
+    except (InjectedCrash, FloatingPointError) as e:
+        return {"error": (type(e).__name__, str(e))}
+    out["digests"] = state_digests(out.pop("final_state"))
+    return out
+
+
+def _train_here(mesh, *, arch, shape, steps, reduced, ckpt_dir, ckpt_every, seed, crash_at,
+                step_timeout_factor, verbose, device, config) -> dict:
+    """The training loop on this process: one rank (``mesh`` None) or one
+    of the mesh's data ranks (``build_bundle`` runs a one-rank mesh as
+    None)."""
+    bundle = build_bundle(arch, shape, reduced=reduced, config=config, device=device,
+                          mesh=mesh)
     spec = ARCHS[arch]
+    writer = mesh is None or mesh.rank == 0
+    verbose = verbose and writer
     state = bundle.init_state_fn(seed)
     dev = next(state["params"].parameters()).device
 
-    start = 0
+    start, resumed = 0, None
     if ckpt_dir and (last := latest_step(ckpt_dir)) is not None:
         restore_state(ckpt_path(ckpt_dir, last), state)
-        start = last
+        start = resumed = last
         if verbose:
             print(f"[train] resumed from step {last}")
 
-    ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
+    ckpt = Checkpointer(ckpt_dir) if ckpt_dir and writer else None
     losses: list[float] = []
+    gnorms: list[float] = []
     durations: list[float] = []
     stragglers = 0
 
@@ -93,12 +222,13 @@ def train(
     try:
         for step in range(start, steps):
             if crash_at is not None and step == crash_at:
-                raise RuntimeError(f"injected crash at step {step}")
+                raise InjectedCrash(f"injected crash at step {step}")
             t0 = time.perf_counter()
             state, metrics = bundle.step_fn(state, batch_for(step))
             loss = float(metrics["loss"])  # waits for the step
             dt = time.perf_counter() - t0
             durations.append(dt)
+            gnorms.append(float(metrics["gnorm"]))
             med = float(np.median(durations))
             if len(durations) > 3 and dt > step_timeout_factor * med:
                 stragglers += 1
@@ -111,6 +241,16 @@ def train(
                 ckpt.save_async(state_tree(state), step + 1)
             if verbose and (step % max(1, steps // 10) == 0):
                 print(f"[train] step {step}: loss {loss:.4f} ({dt*1e3:.0f} ms)")
+    except (InjectedCrash, FloatingPointError):
+        # every rank fails at this step: none may leave before the
+        # writer's save in flight is on disk
+        try:
+            if ckpt:
+                ckpt.wait()
+        finally:
+            if mesh is not None:
+                mesh.data.barrier()
+        raise
     finally:
         # drain the save in flight: a Python exception (an injected crash, a
         # diverged loss) is a graceful failure, and the checkpoint written
@@ -120,8 +260,12 @@ def train(
     if ckpt:
         ckpt.save_async(state_tree(state), steps)
         ckpt.wait()
-    return {"losses": losses, "stragglers": stragglers, "final_state": state,
-            "step_s": durations}
+    out = {"losses": losses, "gnorms": gnorms, "stragglers": stragglers,
+           "final_state": state, "step_s": durations, "resumed_from": resumed}
+    if mesh is not None:
+        mesh.data.barrier()  # the last checkpoint is on disk for every rank
+        out.update(ranks=mesh.shape["data"], stats=mesh.data.stats.snapshot())
+    return out
 
 
 def main(argv=None):
@@ -135,11 +279,13 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--crash-at", type=int)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ranks", type=int,
+                    help="data-parallel ranks (default 1)")
     args = ap.parse_args(argv)
     out = train(
         args.arch, args.shape, steps=args.steps, reduced=not args.full,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, seed=args.seed,
-        crash_at=args.crash_at, device=args.device,
+        crash_at=args.crash_at, device=args.device, ranks=args.ranks,
     )
     if out["losses"]:
         print(f"[train] done; loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}")

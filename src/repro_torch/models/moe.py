@@ -20,8 +20,19 @@ reads its slot's weighted output (nothing if dropped), and a token's k
 terms are added in ascending slot order, the order of the reference's
 scatter-add, so two calls give the same bits on any device.
 
+Data-parallel ranks (``mesh=``, a mesh whose data axes span D > 1 ranks)
+run the global batch's dispatch groups: the reference's ``_n_groups`` sees
+the global token count (GSPMD shards the groups over the batch axes, not
+the tokens), so a rank holding T tokens runs ``G / D`` of the ``G =
+_n_groups(T * D)`` groups -- its own rows' groups, at the global group size
+and capacity -- and the drops, the aux loss's groups and the loads are the
+one-rank run's.  ``moe_ffn_groups`` returns the rank's per-group
+densities; ``expert_loads`` gathers every rank's and sums all G groups in
+global order, so the load (and the router bias it moves) equals the
+one-rank load bit for bit.
+
 The reference's ``constrain`` calls pin the expert buffers to mesh axes;
-on one device they mean nothing, and the port drops them.
+the port's ranks hold whole replicas, and it drops them.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.dist.sharding import dp_size
 from repro_torch.models.common import init_dense, top_k
 
 
@@ -77,6 +89,19 @@ def _n_groups(t: int) -> int:
     return g
 
 
+def dispatch_groups(t: int, mesh=None) -> int:
+    """The dispatch groups of a rank holding ``t`` of the global batch's
+    tokens: ``_n_groups`` of the global count, split evenly over the data
+    ranks (a group straddling two ranks raises)."""
+    d = 1 if mesh is None else dp_size(mesh)
+    g = _n_groups(t * d)
+    if g % d:
+        raise ValueError(
+            f"{t * d} tokens make {g} dispatch groups, which {d} data ranks cannot "
+            "split evenly")
+    return g // d
+
+
 def _capacity(t_loc: int, cfg: MoEConfig) -> int:
     c = int(t_loc * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
     return max(4, (c + 3) // 4 * 4)
@@ -110,11 +135,12 @@ class Routing(NamedTuple):
             self.g * self.t_loc, -1)
 
 
-def route(p: MoE, cfg: MoEConfig, x: torch.Tensor) -> Routing:
-    """Top-k routing and the capacity drop rule for x [T, D]."""
+def route(p: MoE, cfg: MoEConfig, x: torch.Tensor, mesh=None) -> Routing:
+    """Top-k routing and the capacity drop rule for x [T, D] (this rank's
+    tokens under ``mesh``)."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    g = _n_groups(t)
+    g = dispatch_groups(t, mesh)
     t_loc = t // g
     cap = _capacity(t_loc, cfg)
     dev = x.device
@@ -141,9 +167,18 @@ def route(p: MoE, cfg: MoEConfig, x: torch.Tensor) -> Routing:
 
 def moe_ffn(p: MoE, cfg: MoEConfig, x: torch.Tensor):
     """x [T, D] -> (y [T, D], aux_loss scalar, expert load fraction [E])."""
+    y, aux, density = moe_ffn_groups(p, cfg, x)
+    return y, aux, expert_loads(density)
+
+
+def moe_ffn_groups(p: MoE, cfg: MoEConfig, x: torch.Tensor, *, mesh=None):
+    """x [T, D] -> (y [T, D], aux_loss scalar, the dispatch groups' expert
+    densities [G, E], detached; ``expert_loads`` makes them the load).
+    Under a ``mesh``, x is this data rank's tokens, and the aux loss and the
+    densities are its G/D groups'."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    r = route(p, cfg, x)
+    r = route(p, cfg, x, mesh)
     g, t_loc, cap = r.g, r.t_loc, r.cap
     dev = x.device
 
@@ -192,13 +227,24 @@ def moe_ffn(p: MoE, cfg: MoEConfig, x: torch.Tensor):
         s = p.shared
         y = y + (F.silu(x @ s.w_gate) * (x @ s.w_up)) @ s.w_down
 
-    # fraction per expert: the groups summed in order, times float32(1/G),
-    # which is how jnp.mean rounds, so equal routing gives equal bits
-    load = density[0]
+    return y, aux, density.detach()
+
+
+def expert_loads(densities: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Group densities ``[..., G, E]`` (stacked over layers, say) -> the load
+    fraction ``[..., E]``: the groups summed in order, times float32(1/G),
+    which is how jnp.mean rounds, so equal routing gives equal bits.  Under
+    a ``mesh`` each data rank holds ``G/D`` groups: one all-gather along the
+    data axis puts all G in global order first, as one rank sums them."""
+    if mesh is not None:
+        every = mesh.data.all_gather(densities)  # [D, ..., G/D, E]
+        every = torch.movedim(every, 0, -3)
+        densities = every.reshape(*every.shape[:-3], -1, every.shape[-1])
+    g = densities.shape[-2]
+    load = densities[..., 0, :]
     for i in range(1, g):
-        load = load + density[i]
-    load = (load * float(np.float32(1.0 / g))).detach()
-    return y, aux, load
+        load = load + densities[..., i, :]
+    return load * float(np.float32(1.0 / g))
 
 
 def update_router_bias(bias: torch.Tensor, load: torch.Tensor, lr: float = 1e-3) -> torch.Tensor:

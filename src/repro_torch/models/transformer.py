@@ -17,7 +17,10 @@ paths anywhere.  Under ``cfg.remat``, where a gradient is asked for, each
 trunk layer runs under ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint`` of the scanned layer body): the backward keeps only the
 layers' inputs and recomputes each layer.  The reference's ``constrain``
-calls (mesh placement) mean nothing on one device and are dropped.
+calls (mesh placement) are dropped: the port's data-parallel ranks hold
+whole replicas.  ``mesh=`` (the loss and the forward) tells the MoE layers
+that the tokens are one data rank's share of the global batch
+(``models.moe``); None, the default, is one rank.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from repro_torch.models.common import (
     rms_norm,
     swiglu,
 )
-from repro_torch.models.moe import MoE, moe_ffn
+from repro_torch.models.moe import MoE, expert_loads, moe_ffn, moe_ffn_groups
 
 
 def _ones(d: int, dtype, generator) -> nn.Parameter:
@@ -118,7 +121,7 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _layer_fwd(cfg: LMConfig, layer: Layer, x, *, is_moe: bool, backend=None):
+def _layer_fwd(cfg: LMConfig, layer: Layer, x, *, is_moe: bool, backend=None, mesh=None):
     hn = rms_norm(x, layer.attn_norm)
     if cfg.mla:
         h = x + attn.mla_forward(layer.attn, cfg, hn)
@@ -127,33 +130,37 @@ def _layer_fwd(cfg: LMConfig, layer: Layer, x, *, is_moe: bool, backend=None):
     hn = rms_norm(h, layer.ffn_norm)
     if is_moe:
         b, s, d = hn.shape
-        y, aux, load = moe_ffn(layer.moe, cfg.moe, hn.reshape(b * s, d))
-        return h + y.reshape(b, s, d), (aux, load)
+        y, aux, density = moe_ffn_groups(layer.moe, cfg.moe, hn.reshape(b * s, d), mesh=mesh)
+        return h + y.reshape(b, s, d), (aux, density)
     m = layer.mlp
     return h + swiglu(hn, m.w_gate, m.w_up, m.w_down), (None, None)
 
 
-def lm_hidden(model: Transformer, tokens: torch.Tensor, *, backend: str | None = None):
+def lm_hidden(model: Transformer, tokens: torch.Tensor, *, backend: str | None = None,
+              mesh=None):
     """tokens [B,S] -> (hidden [B,S,D], aux scalar, moe loads [L_moe, E] or
-    None)."""
+    None); under a ``mesh`` of data ranks, tokens are this rank's rows,
+    aux its groups' mean, and the loads the global batch's (one all-gather
+    for every layer)."""
     cfg = model.cfg
     x = model.embed[tokens]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     loads = None
     remat = cfg.remat and torch.is_grad_enabled()
     for _, layers, is_moe in model.stacks():
-        auxs, stack_loads = [], []
+        auxs, densities = [], []
         for layer in layers:
             if remat:
-                x, (a, load) = checkpoint(_layer_fwd, cfg, layer, x, is_moe=is_moe,
-                                          backend=backend, use_reentrant=False)
+                x, (a, density) = checkpoint(_layer_fwd, cfg, layer, x, is_moe=is_moe,
+                                             backend=backend, mesh=mesh, use_reentrant=False)
             else:
-                x, (a, load) = _layer_fwd(cfg, layer, x, is_moe=is_moe, backend=backend)
+                x, (a, density) = _layer_fwd(cfg, layer, x, is_moe=is_moe, backend=backend,
+                                             mesh=mesh)
             auxs.append(a)
-            stack_loads.append(load)
+            densities.append(density)
         if is_moe:
             aux = aux + torch.stack(auxs).sum()
-            loads = torch.stack(stack_loads)
+            loads = expert_loads(torch.stack(densities), mesh)
     return x, aux, loads
 
 
@@ -170,13 +177,14 @@ def lm_forward(model: Transformer, tokens: torch.Tensor, *, backend: str | None 
 
 
 def lm_loss_and_stats(model: Transformer, tokens: torch.Tensor, *,
-                      backend: str | None = None):
+                      backend: str | None = None, mesh=None):
     """(loss, stats) for tokens [B, S+1]: next-token CE, the MoE aux loss
     unless the aux-free bias balances, and DeepSeek-V3's MTP loss; stats
-    carry the per-layer expert loads."""
+    carry the per-layer expert loads.  Under a ``mesh`` (``lm_hidden``) the
+    loss is this rank's rows' and the loads the global batch's."""
     cfg = model.cfg
     inp, labels = tokens[:, :-1], tokens[:, 1:]
-    h, aux, loads = lm_hidden(model, inp, backend=backend)
+    h, aux, loads = lm_hidden(model, inp, backend=backend, mesh=mesh)
     loss = cross_entropy_loss(_logits(model, h), labels)
     if cfg.moe and not cfg.moe.aux_free_bias:
         loss = loss + cfg.moe.router_aux_weight * aux

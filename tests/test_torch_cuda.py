@@ -35,6 +35,11 @@ the flash entry refuses a gradient; MeshGraphNet's train-loss grads
 through the kernel (sums and the gathers' gradients) at rtol 1e-3 / atol
 1e-5 of the plain version's float64 grads; a GNN crash and restart equal
 the straight run bit for bit; an LM train step launches no flash kernel.
+Data-parallel training: 2 ranks (gloo on one card, or NCCL on two) of a
+reduced LM's train step in float32 against one rank on the card, within
+``tests/test_torch_dp.py``'s bound on the CPU (loss and gradient norm
+``1e-6``, float32 reassociation), every rank's state equal bit for bit and
+DeepSeek-V3's router biases equal to one rank's.
 """
 
 import dataclasses
@@ -969,3 +974,76 @@ def test_sync_debug_count_equals_audited_reads_and_transfers(cuda_device, name):
         lambda: trace_audit.audit_window(engine, state, 8, name))
     assert not findings
     assert n == stats["reads"] + stats["transfers"] and stats["transfers"] == 7
+
+
+# -- data-parallel training on the card --------------------------------------------
+
+#: D ranks against one rank, tests/test_torch_dp.py's bound on the CPU
+DP_BOUND = dict(loss=1e-6, gnorm=1e-6)
+DP_ARCHS = ["tinyllama-1.1b", "deepseek-v3-671b"]
+
+
+def _dp_card_steps(arch: str, mesh=None) -> dict:
+    """3 float32 steps of ``arch``'s reduced train bundle on the card, on
+    ``mesh``'s data axis (this rank's rows) or on one rank."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.steps import build_bundle
+    from repro_torch.launch.train import state_digests
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    tb = build_bundle(arch, "train_4k", reduced=True, device="cuda", mesh=mesh)
+    model = tb.init_state_fn(0)["params"].to(torch.float32)
+    state = {"params": model, "opt": adamw_init(model, AdamWConfig())}
+    losses, gnorms = [], []
+    for i in range(3):
+        batch = make_batch(tb.abstract_inputs, seed=0, step=i, bounds=tb.input_bounds,
+                           device="cuda")
+        state, m = tb.step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+    return {"losses": losses, "gnorms": gnorms, "digests": state_digests(state),
+            "calls": None if mesh is None else mesh.data.stats.snapshot()["calls"]}
+
+
+def _dp_card_rank(arch: str) -> dict:
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return _dp_card_steps(arch, make_host_mesh())
+
+
+def _assert_dp_equals_one_rank(ranks, arch):
+    one = _dp_card_steps(arch)
+    got = ranks[0]
+    np.testing.assert_allclose(got["losses"], one["losses"], rtol=DP_BOUND["loss"])
+    np.testing.assert_allclose(got["gnorms"], one["gnorms"], rtol=DP_BOUND["gnorm"])
+    assert all(r["digests"] == got["digests"] for r in ranks)
+    assert got["calls"]["all_reduce"] >= 2 * 3  # a bucket and the loss, each step
+    biases = [k for k in one["digests"] if k.endswith("router_bias")]
+    assert bool(biases) == (arch == "deepseek-v3-671b")
+    for k in biases:
+        assert got["digests"][k] == one["digests"][k], k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", DP_ARCHS)
+def test_data_parallel_on_one_card_matches_one_rank(cuda_device, arch):
+    from repro_torch.dist import run_ranks
+
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("each rank gets its own card here: the NCCL test covers it")
+    ranks = run_ranks(_dp_card_rank, 2, device="cuda", timeout=600, args=(arch,))
+    assert ranks.backend == "gloo" and ranks.devices == ["cuda:0", "cuda:0"]
+    _assert_dp_equals_one_rank(ranks, arch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", DP_ARCHS)
+def test_nccl_data_parallel_on_two_cards_matches_one_rank(cuda_device, arch):
+    from repro_torch.dist import run_ranks
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL needs a card per rank; this machine has one")
+    ranks = run_ranks(_dp_card_rank, 2, device="cuda", timeout=600, args=(arch,))
+    assert ranks.backend == "nccl" and ranks.devices == ["cuda:0", "cuda:1"]
+    _assert_dp_equals_one_rank(ranks, arch)
