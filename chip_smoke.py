@@ -62,7 +62,7 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 train kinds, ``optim``, ``ckpt``), each model at its
                 published config: TinyLlama-1.1B's train_4k (22 layers, d
                 2048, bfloat16, remat on, S = 4,096, the global batch cut
-                from 256 to 4) for 3 steps from --seed, timed by CUDA
+                from 256 to 4) for 2 steps from --seed, timed by CUDA
                 events, its peak read and one more step profiled; gated on
                 step 1 against the same model in float32 on the ``torch``
                 backend (the loss, the gradient norm and attention's
@@ -85,22 +85,43 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 ``train()`` inside a rank) on 2 ranks that share the card
                 over gloo, every case in one ``run_ranks`` launch: TinyLlama
                 as the train phase runs it (the global batch of 4, 2 rows a
-                rank, the same seed and batches) for 3 steps, step 1's loss
-                and gradient norm within 1e-5 and 1e-4 of the train phase's
-                one-rank step 1 (a control, rank 0's gradient norm of its own
-                rows before the mean, must fail); DeepFM's train_batch at its
+                rank, the same seed and batches; its parameters and moments
+                FSDP-sharded over the 2 ranks) for 1 step, its loss and
+                gradient norm within 1e-5 and 1e-4 of the train phase's
+                one-rank step 1 (a control, rank 0's gradient norm before
+                the mean, must fail); DeepFM's train_batch at its
                 published config through ``train()``, 3 steps, each held the
-                same way to the train phase's; every rank's state equal bit
-                for bit after the steps (per-tensor digests); step wall,
+                same way to the train phase's; every rank's state, gathered
+                whole, equal bit for bit after the steps (per-tensor
+                digests); step wall,
                 collective calls, bytes and seconds, their share, peak
                 device bytes per rank.  Then the trainer's restart across
                 rank counts at DeepSeek-V3's reduced config: 4 steps
                 checkpointed every 2 on 2 ranks; a crash at step 3 and its
                 resume equal that run bit for bit; its last checkpoint
                 resumed here on 1 rank restores the 2-rank state bit for bit
-                and its 2 more losses stay within 1e-3 of the 2 ranks'.  No kernel is new here: the LM train step takes the
-                plain attention (the flash kernel has no backward; 0
-                launches) and DeepFM's dense bags are gathers.
+                and its 2 more losses stay within 1e-3 of the 2 ranks'.  No
+                kernel is new here: the LM train step takes the plain
+                attention (the flash kernel has no backward; 0 launches)
+                and DeepFM's dense bags are gathers.
+     model_axis -- the same launch's ranks as a ``(data = 1, model = 2)``
+                mesh (``launch.mesh.make_mesh``): every parameter split by
+                the reference's rule tables over ``model``.  TinyLlama's
+                train_4k as above for 1 step, held to the one-rank step 1
+                within 1e-4 and 2.5e-3 (bfloat16 partial sums; the control:
+                rank 0's gradient norm of its own shards; no whole-state
+                digest, whose 11 GB gather through gloo takes 11 s);
+                TinyLlama's (22 layers) and Mixtral's (2 of 56
+                layers) prefill_32k, each rank on its own heads on the flash
+                kernel (TinyLlama 16 query and 2 KV heads a rank, Mixtral 24
+                and 4 and its 8 experts 4 a rank), the launches counted from
+                0 on each rank (one ``bfloat16-wgmma`` a layer), the last
+                position's logits within 0.25 of the rms of the lm phase's
+                one-rank logits; DeepFM's train_batch through
+                ``train(model=2)``, its tables' vocab rows split, every step
+                held to the one-rank step; a ``(1, 2)`` checkpoint of
+                DeepSeek-V3's reduced config restored here on one rank bit
+                for bit.
   8. graph   -- ``rmat_graph(22, 8, seed=42)`` (about 4.2 M vertices and
                 68 M directed edges, SNAP soc-LiveJournal1's size) split by
                 ``bfs_grow_partition(..., 8, seed=1)``; host build times.
@@ -335,7 +356,7 @@ from repro_torch.data.synthetic import InputSpec, make_batch  # noqa: E402
 from repro_torch.launch.serve import serve_batch  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch.steps import build_bundle  # noqa: E402
-from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh, make_mesh  # noqa: E402
 from repro_torch.launch.train import (  # noqa: E402
     InjectedCrash,
     state_digests,
@@ -545,7 +566,7 @@ RECSYS_BAGS, RECSYS_BAG_MAX = 262_144, 40
 #: bound); the control, attention with its gradient cut (q, k, v detached:
 #: what a forward-only kernel would do without the entry's refusal), must
 #: fail it (measured: gnorm 0.72 off, attention's 1.0).
-TRAIN_LM_ARCH, TRAIN_LM_BATCH, TRAIN_LM_STEPS = "tinyllama-1.1b", 4, 3
+TRAIN_LM_ARCH, TRAIN_LM_BATCH, TRAIN_LM_STEPS = "tinyllama-1.1b", 4, 2
 TRAIN_GATE_RTOL = {"loss": 5e-5, "gnorm": 3e-3, "attn_gnorm": 3e-3}
 #: MeshGraphNet (15 layers, d 128) on minibatch_lg as launch/steps.py sizes
 #: it, TRAIN_GNN_STEPS steps with a checkpoint every TRAIN_GNN_CKPT; then a
@@ -577,12 +598,28 @@ TRAIN_RECSYS_STEPS = 5
 #: TRAIN_DP_RESTART_RTOL of the same steps resumed on 2 ranks (bfloat16
 #: parameters updated from differently rounded gradients; measured 6.1e-8
 #: and 1.1e-4).
-TRAIN_DP_RANKS, TRAIN_DP_STEPS = 2, 3
+TRAIN_DP_RANKS, TRAIN_DP_STEPS, TRAIN_DP_LM_STEPS = 2, 3, 1
 TRAIN_DP_RTOL = {"loss": 1e-5, "gnorm": 1e-4}
 TRAIN_DP_RESTART_RTOL = 1e-3
 TRAIN_DP_RESTART_ARCH = "deepseek-v3-671b"
 TRAIN_DP_RESTART = (4, 2, 3, 2)
 TRAIN_DP_TIMEOUT_S = 900.0
+#: the model_axis phase (in train_dp's launch): the ranks as a (data = 1,
+#: model = MODEL_AXIS_RANKS) mesh; TinyLlama's train step and DeepFM's held
+#: as train_dp holds them; the prefill of each of LM_MODELS as the lm phase
+#: builds it (its one-rank last-position logits kept in PREFILL_REFS), each
+#: rank's flash launches n_layers, the logits within LM_BF16_LOGIT_SHARE of
+#: the one-rank logits' rms (both run the flash kernel on the same heads;
+#: only the row-parallel sums' rounding differs).  TinyLlama's bfloat16 step
+#: on the model axis rounds each row-parallel projection's two partial sums
+#: before adding them, where one rank rounds their sum once: its step 1 is
+#: held to MODEL_AXIS_LM_RTOL of the one-rank step, about 4x the distance
+#: measured on an H100 (loss 2.1e-5, gradient norm 6.1e-4), which the
+#: control (rank 0's gradient norm of its own shards; measured 0.40) must
+#: fail
+MODEL_AXIS_RANKS = 2
+MODEL_AXIS_LM_RTOL = {"loss": 1e-4, "gnorm": 2.5e-3}
+PREFILL_REFS: dict = {}
 #: the template instantiations the main path runs, and the program each
 #: serves there: (variant, reduce, dtype, program name)
 MAIN_VARIANTS = (
@@ -1408,6 +1445,8 @@ def _lm_model_run(arch: str, layers: int | None, device, seed: int, scale: int) 
     # -- end of the prefill step --
     _check(launches == cfg.n_layers and variants["bfloat16-wgmma"] == cfg.n_layers,
            f"lm {arch}: prefill launched flash {variants}, not {cfg.n_layers} x bfloat16-wgmma")
+    # the one-rank last-position logits, for the model_axis phase
+    PREFILL_REFS[arch] = (cfg, tokens.cpu(), _last_logits(model, tokens).cpu())
     nxt = out["next_token"]
     _check(nxt.shape == (LM_PREFILL_BATCH,) and bool(((nxt >= 0) & (nxt < cfg.vocab)).all()),
            f"lm {arch}: prefill's next token out of range")
@@ -1844,16 +1883,17 @@ def _stats_delta(a: dict, b: dict) -> dict:
 
 class _LocalNorm:
     """Wraps ``launch.steps.all_reduce_grads``: the first call's gradient
-    norm before the mean (this rank's own rows), read once."""
+    norm before the mean (this rank's own gradients: its rows' where the
+    data axis leaves a leaf whole, its shards' elsewhere), read once."""
 
     def __init__(self):
         self.real = train_steps.all_reduce_grads
         self.gnorm = None
 
-    def __call__(self, grads, params, mesh):
+    def __call__(self, grads, params, mesh, **kw):
         if self.gnorm is None:
             self.gnorm = float(global_norm(grads.values()))
-        return self.real(grads, params, mesh)
+        return self.real(grads, params, mesh, **kw)
 
     def __enter__(self):
         train_steps.all_reduce_grads = self
@@ -1875,17 +1915,30 @@ def _rank_peak(mesh, reset: bool = False) -> int | None:
     return torch.cuda.max_memory_allocated()
 
 
-def _dp_lm(mesh, seed: int, cfg, seq_len: int) -> dict:
+def _both_axes(before: dict, after: dict) -> dict:
+    """``_stats_delta`` of both axes of a ``HostMesh.stats`` pair, summed."""
+    out = {"calls": {}, "bytes": {}, "seconds": 0.0}
+    for axis in ("data", "model"):
+        d = _stats_delta(before[axis], after[axis])
+        for k in ("calls", "bytes"):
+            for op, v in d[k].items():
+                out[k][f"{axis}/{op}"] = v
+        out["seconds"] += d["seconds"]
+    return out
+
+
+def _dp_lm(mesh, seed: int, cfg, seq_len: int, n_steps: int, digests: bool = True) -> dict:
     """TinyLlama's train steps on this rank, as ``_train_lm`` runs them on
-    one: the same global batches, this rank's rows taken by the step."""
+    one: the same global batches, this rank's rows taken by the step;
+    ``digests``: of the final state gathered whole (11 GB through gloo)."""
     bundle = build_bundle(TRAIN_LM_ARCH, "train_4k", config=cfg, mesh=mesh)
     state = bundle.init_state_fn(seed)
     tokens_spec = {"tokens": InputSpec((TRAIN_LM_BATCH, seq_len + 1), torch.int32)}
     batches = [make_batch(tokens_spec, seed=seed, step=i, bounds=bundle.input_bounds,
-                          device=mesh.device) for i in range(TRAIN_DP_STEPS)]
+                          device=mesh.device) for i in range(n_steps)]
     _rank_peak(mesh, reset=True)
     _zero_flash_counts()
-    before = mesh.data.stats.snapshot()
+    before = mesh.stats()
     losses, gnorms, wall = [], [], []
     with _LocalNorm() as local:
         for b in batches:
@@ -1894,13 +1947,20 @@ def _dp_lm(mesh, seed: int, cfg, seq_len: int) -> dict:
             losses.append(float(m["loss"]))  # waits for the step
             wall.append(time.perf_counter() - t0)
             gnorms.append(float(m["gnorm"]))
-    stats = _stats_delta(before, mesh.data.stats.snapshot())
+    stats = _both_axes(before, mesh.stats())
     res = {"losses": losses, "gnorms": gnorms, "local_gnorm_step1": local.gnorm,
            "step_s_each": wall, "stats": stats,
            "collective_share": stats["seconds"] / sum(wall),
            "peak_device_bytes": _rank_peak(mesh),
-           "flash_launches": flash_fwd.launches, "digests": state_digests(state)}
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in state["params"].parameters()),
+           "flash_launches": flash_fwd.launches}
+    if digests:
+        t0 = time.perf_counter()
+        res["digests"] = state_digests(state)
+        res["digest_s"] = time.perf_counter() - t0
     del state, batches
+    _rank_peak(mesh, reset=True)
     return res
 
 
@@ -1946,16 +2006,101 @@ def _dp_restart(mesh, seed: int, root: str) -> dict:
             "continued_from": cont["resumed_from"], "continued_losses": cont["losses"]}
 
 
-def _dp_rank(seed: int, root: str, lm_cfg, lm_seq: int, recsys_cfg) -> dict:
+def _tp_prefill(mesh, seed: int, arch: str, cfg, tokens) -> dict:
+    """One model's prefill_32k on this rank of the model axis: built from
+    ``seed`` as the lm phase builds it, the flash launches counted from 0
+    around the bundle's step, which is timed (one call: the rank's first
+    of this model) and whose last position's logits (gathered whole) are
+    read off it."""
+    bundle = build_bundle(arch, "prefill_32k", config=cfg, mesh=mesh)
+    state = bundle.init_state_fn(seed)
+    model = state["params"]
+    layer = (model.moe_layers if cfg.moe else model.dense_layers)[0]
+    tokens = tokens.to(mesh.device)
+    seen = {}
+    real = train_steps.gather_logits
+
+    def keep(model, logits, mesh):
+        out = real(model, logits, mesh)
+        seen["logits"] = out[:, -1].float().cpu()
+        return out
+
+    _rank_peak(mesh, reset=True)
+    _zero_flash_counts()
+    before = mesh.stats()
+    train_steps.gather_logits = keep
+    t0 = time.perf_counter()
+    try:
+        out = bundle.step_fn(state, {"tokens": tokens})
+    finally:
+        train_steps.gather_logits = real
+    _rank_peak(mesh)  # the host clock up to the card's end
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    stats = _both_axes(before, mesh.stats())
+    launches, variants = flash_fwd.launches, dict(flash_fwd.variant_launches)
+    res = {"arch": arch, "n_layers": cfg.n_layers, "s": int(tokens.shape[1]),
+           "heads_per_rank": [layer.attn.wq.shape[1] // cfg.d_head,
+                              layer.attn.wk.shape[1] // cfg.d_head],
+           "experts_per_rank": layer.moe.we_gate.shape[0] if cfg.moe else None,
+           "fsdp": any("data" in spec for spec in model.placement.specs.values()),
+           "flash_launches": launches, "variant_launches": variants,
+           "prefill_ms": prefill_ms, "stats": stats,
+           "collective_share": stats["seconds"] * 1e3 / prefill_ms,
+           "peak_device_bytes": _rank_peak(mesh),
+           "next_token": out["next_token"].tolist(), "logits": seen["logits"]}
+    del state, model, out
+    _rank_peak(mesh, reset=True)
+    return res
+
+
+def _tp_recsys(mesh, seed: int, cfg) -> dict:
+    """DeepFM's train_batch through ``train(model=T)`` on this rank."""
+    _rank_peak(mesh, reset=True)
+    with _LocalNorm() as local:
+        out = train("deepfm", "train_batch", steps=TRAIN_DP_STEPS, reduced=False, config=cfg,
+                    seed=seed, verbose=False, device=mesh.device, model=mesh.shape["model"])
+    stats = _stats_delta({"calls": {}, "bytes": {}, "seconds": 0.0}, out["model_stats"])
+    res = {"losses": out["losses"], "gnorms": out["gnorms"], "local_gnorm_step1": local.gnorm,
+           "step_s_each": out["step_s"], "stats": stats,
+           "collective_share": stats["seconds"] / sum(out["step_s"]),
+           "peak_device_bytes": _rank_peak(mesh),
+           "digests": state_digests(out["final_state"])}
+    del out
+    _rank_peak(mesh, reset=True)
+    return res
+
+
+def _tp_restart(mesh, seed: int, root: str) -> dict:
+    """``train()`` on the model axis: TRAIN_DP_RESTART[0] steps of
+    DeepSeek-V3's reduced config, checkpointed (whole) every
+    TRAIN_DP_RESTART[1]."""
+    n, every, _, _ = TRAIN_DP_RESTART
+    out = train(TRAIN_DP_RESTART_ARCH, "train_4k", steps=n, ckpt_dir=f"{root}/tp",
+                ckpt_every=every, seed=seed, verbose=False, device=mesh.device,
+                model=mesh.shape["model"])
+    return {"losses": out["losses"], "digests": state_digests(out["final_state"])}
+
+
+def _dp_rank(seed: int, root: str, lm_cfg, lm_seq: int, recsys_cfg, prefill: dict) -> dict:
     """One rank of the train_dp launch: every case, at the configs the
-    parent sends (the published ones on the card)."""
+    parent sends (the published ones on the card); then the model_axis
+    cases on the same ranks as a (1, MODEL_AXIS_RANKS) mesh (``prefill``:
+    arch -> (config, tokens))."""
     mesh = make_host_mesh()
     t0 = time.perf_counter()
     out = {"mesh": mesh.data.describe(), "shape": mesh.shape,
-           "lm": _dp_lm(mesh, seed, lm_cfg, lm_seq)}
+           "lm": _dp_lm(mesh, seed, lm_cfg, lm_seq, TRAIN_DP_LM_STEPS)}
     out["recsys"] = _dp_recsys(mesh, seed, recsys_cfg)
     out["restart"] = _dp_restart(mesh, seed, root)
     out["rank_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tp = make_mesh(data=1, model=MODEL_AXIS_RANKS)
+    out["tp"] = {"shape": tp.shape, "lm": _dp_lm(tp, seed, lm_cfg, lm_seq, 1, digests=False),
+                 "prefill": [_tp_prefill(tp, seed, arch, cfg, tokens)
+                             for arch, (cfg, tokens) in prefill.items()],
+                 "recsys": _tp_recsys(tp, seed, recsys_cfg),
+                 "restart": _tp_restart(tp, seed, root),
+                 "rank_s": time.perf_counter() - t0}
     return out
 
 
@@ -1966,17 +2111,43 @@ def _dp_off(got: dict, ref: dict, step: int) -> dict:
             for k in TRAIN_DP_RTOL}
 
 
-def phase_train_dp(device, seed: int, train_line: dict) -> dict:
-    """Data-parallel training on ranks sharing the card (see TRAIN_DP_*);
-    ``train_line`` is the train phase's, the one-rank values."""
+def _held(case: str, got: dict, ref: dict, steps: int, ranks, key,
+          rtol: dict = TRAIN_DP_RTOL) -> dict:
+    """A rank launch's train case against the one-rank run ``ref``: each
+    of ``steps`` steps within ``rtol``, the control (rank 0's gradient norm
+    before the cross-rank sums) outside it, and, where the ranks took
+    digests, every rank's gathered state equal bit for bit."""
+    off = [_dp_off(got, ref, i) for i in range(steps)]
+    ctrl = abs(got["local_gnorm_step1"] - ref["gnorms"][0]) / abs(ref["gnorms"][0])
+    _check(all(o[k] <= rtol[k] for o in off for k in o),
+           f"{case}: off the one-rank step by {off} (bound {rtol})")
+    _check(ctrl > rtol["gnorm"],
+           f"{case}: the control (rank 0's gradient norm before the sums) passed: {ctrl}")
+    identical = None
+    if "digests" in got:
+        identical = all(key(r)["digests"] == got["digests"] for r in ranks)
+        _check(identical, f"{case}: the ranks' gathered states differ")
+    return {k: v for k, v in got.items() if k != "digests"} | {
+        "one_rank": {"losses": ref["losses"][:steps], "gnorms": ref["gnorms"][:steps]},
+        "off": off, "control_off": ctrl, "ranks_identical": identical,
+        "peak_device_bytes_each": [key(r)["peak_device_bytes"] for r in ranks],
+        "step_s": float(np.median(got["step_s_each"][1:] or got["step_s_each"]))}
+
+
+def phase_train_dp(device, seed: int, train_line: dict) -> tuple[dict, dict]:
+    """Data-parallel training on ranks sharing the card (see TRAIN_DP_*),
+    then the model_axis cases on the same ranks (see MODEL_AXIS_RANKS);
+    ``train_line`` is the train phase's, the one-rank values, and
+    PREFILL_REFS the lm phase's.  Returns both phases' lines."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as root:
         lm = ARCHS[TRAIN_LM_ARCH]
+        prefill = {arch: (cfg, tokens) for arch, (cfg, tokens, _) in PREFILL_REFS.items()}
         ranks = run_ranks(_dp_rank, TRAIN_DP_RANKS, device=device.type,
                           timeout=TRAIN_DP_TIMEOUT_S,
                           args=(seed, root, lm.config, lm.shapes()["train_4k"].seq_len,
-                                ARCHS["deepfm"].config))
+                                ARCHS["deepfm"].config, prefill))
         launch_s = time.perf_counter() - t0
         r0 = ranks[0]
         line = {"ranks": TRAIN_DP_RANKS, "backend": ranks.backend, "devices": ranks.devices,
@@ -1984,26 +2155,13 @@ def phase_train_dp(device, seed: int, train_line: dict) -> dict:
                 "rank_s": [r["rank_s"] for r in ranks]}
         _check(r0["shape"] == {"data": TRAIN_DP_RANKS, "model": 1},
                f"train_dp: the host mesh is {r0['shape']}")
-        for case, ref, steps in (("lm", train_line["lm"], 1),
-                                 ("recsys", train_line["recsys"], TRAIN_DP_STEPS)):
-            got = r0[case]
-            off = [_dp_off(got, ref, i) for i in range(steps)]
-            ctrl = abs(got["local_gnorm_step1"] - ref["gnorms"][0]) / abs(ref["gnorms"][0])
-            _check(all(o[k] <= TRAIN_DP_RTOL[k] for o in off for k in o),
-                   f"train_dp {case}: {TRAIN_DP_RANKS} ranks off the one-rank step by {off} "
-                   f"(bound {TRAIN_DP_RTOL})")
-            _check(ctrl > TRAIN_DP_RTOL["gnorm"],
-                   f"train_dp {case}: the control (rank 0's own rows' gradient) passed: {ctrl}")
-            _check(all(r[case]["digests"] == got["digests"] for r in ranks),
-                   f"train_dp {case}: the ranks' states differ after {TRAIN_DP_STEPS} steps")
-            line[case] = {k: v for k, v in got.items() if k != "digests"} | {
-                "one_rank": {"losses": ref["losses"][:TRAIN_DP_STEPS],
-                             "gnorms": ref["gnorms"][:TRAIN_DP_STEPS]},
-                "off": off, "control_off": ctrl, "ranks_identical": True,
-                "peak_device_bytes_each": [r[case]["peak_device_bytes"] for r in ranks],
-                "step_s": float(np.median(got["step_s_each"][1:]))}
+        line["lm"] = _held("train_dp lm", r0["lm"], train_line["lm"], TRAIN_DP_LM_STEPS, ranks,
+                           lambda r: r["lm"])
+        line["lm"].update(rtol=TRAIN_DP_RTOL, fsdp=True,
+                          cut={"steps": [TRAIN_DP_STEPS, TRAIN_DP_LM_STEPS]})
+        line["recsys"] = _held("train_dp recsys", r0["recsys"], train_line["recsys"],
+                               TRAIN_DP_STEPS, ranks, lambda r: r["recsys"])
         _check(line["lm"]["flash_launches"] == 0, "train_dp lm: the flash kernel ran under grad")
-        line["lm"]["rtol"] = TRAIN_DP_RTOL
 
         # -- the restart across rank counts --
         n, every, crash_at, more = TRAIN_DP_RESTART
@@ -2026,19 +2184,83 @@ def phase_train_dp(device, seed: int, train_line: dict) -> dict:
                "train_dp restart: one rank restored another state than the 2 ranks'")
         del restored
         one = train(TRAIN_DP_RESTART_ARCH, "train_4k", steps=n + more, **kw)
-    one_off = [abs(a - b) / abs(b) for a, b in zip(one["losses"], rs["continued_losses"])]
-    _check(one["resumed_from"] == n,
-           f"train_dp restart: one rank resumed from {one['resumed_from']}, not {n}")
-    _check(all(o <= TRAIN_DP_RESTART_RTOL for o in one_off),
-           f"train_dp restart: one rank's losses off the 2 ranks' by {one_off}")
-    line["restart"] = {
-        "arch": TRAIN_DP_RESTART_ARCH, "config": "reduced", "steps": n, "ckpt_every": every,
-        "crash_at": crash_at, "losses": rs["losses"], "resumed_losses": rs["resumed_losses"],
-        "bit_exact": True, "one_rank": {"from": n, "losses": one["losses"],
-                                        "two_rank_losses": rs["continued_losses"],
-                                        "off": one_off, "rtol": TRAIN_DP_RESTART_RTOL,
-                                        "restored_bit_exact": True}}
+        one_off = [abs(a - b) / abs(b) for a, b in zip(one["losses"], rs["continued_losses"])]
+        _check(one["resumed_from"] == n,
+               f"train_dp restart: one rank resumed from {one['resumed_from']}, not {n}")
+        _check(all(o <= TRAIN_DP_RESTART_RTOL for o in one_off),
+               f"train_dp restart: one rank's losses off the 2 ranks' by {one_off}")
+        line["restart"] = {
+            "arch": TRAIN_DP_RESTART_ARCH, "config": "reduced", "steps": n, "ckpt_every": every,
+            "crash_at": crash_at, "losses": rs["losses"], "resumed_losses": rs["resumed_losses"],
+            "bit_exact": True, "one_rank": {"from": n, "losses": one["losses"],
+                                            "two_rank_losses": rs["continued_losses"],
+                                            "off": one_off, "rtol": TRAIN_DP_RESTART_RTOL,
+                                            "restored_bit_exact": True}}
+        del one
+        tp_line = _model_axis_line(ranks, train_line, device, seed, root)
     line.update(nvidia_smi=_nvidia_smi(), phase_s=time.perf_counter() - t0)
+    tp_line["nvidia_smi"] = line["nvidia_smi"]
+    return line, tp_line
+
+
+def _model_axis_line(ranks, train_line: dict, device, seed: int, root: str) -> dict:
+    """The model_axis cases of the launch ``ranks``, held (see
+    MODEL_AXIS_RANKS); the (1, 2) checkpoint restored here on one rank."""
+    tp0 = ranks[0]["tp"]
+    _check(tp0["shape"] == {"data": 1, "model": MODEL_AXIS_RANKS},
+           f"model_axis: the mesh is {tp0['shape']}")
+    line = {"ranks": MODEL_AXIS_RANKS, "shape": tp0["shape"],
+            "rank_s": [r["tp"]["rank_s"] for r in ranks]}
+    line["lm"] = _held("model_axis lm", tp0["lm"], train_line["lm"], 1, ranks,
+                       lambda r: r["tp"]["lm"], MODEL_AXIS_LM_RTOL)
+    line["lm"]["rtol"] = MODEL_AXIS_LM_RTOL
+    _check(line["lm"]["flash_launches"] == 0, "model_axis lm: the flash kernel ran under grad")
+    line["recsys"] = _held("model_axis recsys", tp0["recsys"], train_line["recsys"],
+                           TRAIN_DP_STEPS, ranks, lambda r: r["tp"]["recsys"])
+    line["prefill"] = []
+    on_card = device.type == "cuda"
+    for i, (arch, (cfg, tokens, ref)) in enumerate(PREFILL_REFS.items()):
+        each = [r["tp"]["prefill"][i] for r in ranks]
+        bound = LM_BF16_LOGIT_SHARE * float(ref.square().mean().sqrt())
+        errs = [_max_abs_err(p["logits"], ref) for p in each]
+        for p in each:
+            # on the card every rank runs the kernel on its heads, one launch
+            # a layer (a CPU rehearsal runs the plain path: no launches)
+            _check(not on_card or (p["flash_launches"] == cfg.n_layers
+                                   and p["variant_launches"]["bfloat16-wgmma"] == cfg.n_layers),
+                   f"model_axis {arch}: a rank launched flash {p['variant_launches']}, "
+                   f"not {cfg.n_layers} x bfloat16-wgmma")
+            _check(p["heads_per_rank"] == [cfg.n_heads // MODEL_AXIS_RANKS,
+                                           cfg.n_kv_heads // MODEL_AXIS_RANKS]
+                   and (not cfg.moe
+                        or p["experts_per_rank"] == cfg.moe.n_experts // MODEL_AXIS_RANKS),
+                   f"model_axis {arch}: a rank holds {p['heads_per_rank']} heads and "
+                   f"{p['experts_per_rank']} experts")
+        _check(all(bool(torch.isfinite(p["logits"]).all()) for p in each)
+               and max(errs) <= bound,
+               f"model_axis {arch}: the prefill's logits off one rank's by {max(errs)} (> {bound})")
+        p0 = each[0]
+        line["prefill"].append({
+            **{k: p0[k] for k in ("arch", "n_layers", "s", "heads_per_rank", "experts_per_rank",
+                                  "fsdp", "variant_launches", "stats", "collective_share")},
+            "flash_launches_each": [p["flash_launches"] for p in each],
+            "prefill_ms_each": [p["prefill_ms"] for p in each],
+            "peak_device_bytes_each": [p["peak_device_bytes"] for p in each],
+            "max_abs_err": max(errs), "bound": bound, "tol_ratio": max(errs) / bound,
+            "same_next_token": all(p["next_token"] == ref.argmax(-1).tolist() for p in each)})
+    # the (1, 2) checkpoint restored on one rank: with no step left to run,
+    # its final state is the restored one
+    n = TRAIN_DP_RESTART[0]
+    rs = tp0["restart"]
+    _check(all(r["tp"]["restart"] == rs for r in ranks), "model_axis restart: ranks disagree")
+    restored = train(TRAIN_DP_RESTART_ARCH, "train_4k", steps=n, ckpt_dir=f"{root}/tp",
+                     seed=seed, verbose=False, device=device, ranks=1)
+    _check(restored["resumed_from"] == n and not restored["losses"]
+           and state_digests(restored["final_state"]) == rs["digests"],
+           "model_axis restart: one rank restored another state than the (1, 2) ranks'")
+    line["restart"] = {"arch": TRAIN_DP_RESTART_ARCH, "config": "reduced", "steps": n,
+                       "losses": rs["losses"], "restored_on_one_rank_bit_exact": True}
+    line["launches"] = sum(sum(p["flash_launches_each"]) for p in line["prefill"])
     return line
 
 
@@ -3762,7 +3984,8 @@ def phase_analysis(pg, device, seed: int) -> dict:
 
 def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
                  seg_livj: dict, path_launches: dict, mesh_planes: list, gnn: dict,
-                 gnn_case: dict, lm: dict, recsys: dict, train_line: dict) -> dict:
+                 gnn_case: dict, lm: dict, recsys: dict, train_line: dict,
+                 model_axis: dict) -> dict:
     """One entry per kernel the main path launched, with its numbers at the
     main path's own shape: the relax kernel's local closure reduction, the
     segment sum over uniform ids, the flash kernel at the Mixtral 32k
@@ -3777,8 +4000,10 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
     ranks' summed), the recsys path (the ragged bag, its case under
     ``cases``) and the train path (MeshGraphNet's straight run: every sum
     and every gather's gradient); the flash entry its launches on the lm
-    path (every GQA layer's prefill) and each model's layer-0 case (the
-    train path launches it no time: it has no backward)."""
+    path (every GQA layer's prefill), the model_axis path (every GQA
+    layer's prefill on each rank's heads, summed over the ranks) and each
+    model's layer-0 case (the train path launches it no time: it has no
+    backward)."""
     entries = []
     for variant, _, _, prog in MAIN_VARIANTS:
         cases = checks[variant]
@@ -3828,7 +4053,8 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
             "launches_by_path": (
                 {"segment_sum": launches, "gnn": gnn["launches"], "recsys": recsys["launches"],
                  "train": train_line["launches"]}
-                if phase is seg else {"flash_attention": launches, "lm": lm["launches"]}),
+                if phase is seg else {"flash_attention": launches, "lm": lm["launches"],
+                                      "model_axis": model_axis["launches"]}),
             "max_abs_err": max(c["max_abs_err"] for c in [main, *more, *phase["small"]]),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],
@@ -3874,8 +4100,10 @@ def main(argv=None) -> int:
     _emit("recsys", report["recsys"])
     report["train"] = phase_train(device, args.seed)
     _emit("train", report["train"])
-    report["train_dp"] = phase_train_dp(device, args.seed, report["train"])
+    report["train_dp"], report["model_axis"] = phase_train_dp(device, args.seed,
+                                                              report["train"])
     _emit("train_dp", report["train_dp"])
+    _emit("model_axis", report["model_axis"])
     pg, report["graph"] = build_graph(args.scale, LIVJ_PARTS)
     _emit("graph", report["graph"])
     report["gnn"], gnn_case = phase_gnn(pg, device, args.seed, args.scale)
@@ -3912,7 +4140,7 @@ def main(argv=None) -> int:
         report["flash_attention"], report["segment_sum_livj"],
         {path: report[path]["variant_launches"] for path in ("elastic", "serve", "mesh")},
         report["mesh"]["kernel_planes"], report["gnn"], gnn_case, report["lm"],
-        report["recsys"], report["train"],
+        report["recsys"], report["train"], report["model_axis"],
     )["kernels"]
     report["wall_s"] = time.perf_counter() - t_start
     report["phase_seconds"] = dict(PHASE_SECONDS)

@@ -98,10 +98,10 @@ def _read(path: str) -> tuple[dict, int]:
     return header, len(_MAGIC) + 8 + n
 
 
-def restore_pytree(path: str, target_tree):
+def restore_pytree(path: str, target_tree, *, device=None):
     """A tree of ``target_tree``'s structure read from ``path``: each leaf
-    in its stored dtype, on the device of the target's leaf, checked by key
-    and shape."""
+    in its stored dtype, on ``device`` (by default the device of the
+    target's leaf), checked by key and shape."""
     header, base = _read(path)
     records = {rec["key"]: rec for rec in header["leaves"]}
     out = {}
@@ -116,7 +116,7 @@ def restore_pytree(path: str, target_tree):
             f.seek(base + rec["offset"])
             raw = zlib.decompress(f.read(rec["nbytes"]))
             t = _from_bytes(raw, getattr(torch, rec["dtype"]), rec["shape"])
-            out[key] = t.to(leaf.device)
+            out[key] = t.to(leaf.device if device is None else device)
     return _unflatten_like(target_tree, out)
 
 

@@ -9,7 +9,10 @@ state pulled to the host resumes on the port's engine, a parameter tree
 ``init_deepfm`` build them) becomes the port's module with the same
 values, and a train state (parameters and AdamW moments) the port's train
 state.  Leaves may be bfloat16 (``ml_dtypes``' numpy type); they are
-widened to float32 on the way, which is exact.
+widened to float32 on the way, which is exact.  Given a ``mesh``
+(``launch.mesh.make_mesh``), a model and its moments keep only this rank's
+shards, placed by the family's rule table fitted to the mesh
+(``dist.sharding.place``), as ``launch.steps`` places a bundle's state.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.dist import sharding
 from repro_torch.graph.structs import Graph, PartitionedGraph
 from repro_torch.graph.traversal import WindowState
 
@@ -118,14 +122,21 @@ def _load_tree(module: torch.nn.Module, tree) -> None:
         raise KeyError(f"the tree holds no value for {missing}")
 
 
-def gnn_params_from_numpy(kind: str, tree: dict, cfg, *, device="cuda") -> torch.nn.Module:
+def _place(module: torch.nn.Module, specs_of, mesh) -> torch.nn.Module:
+    """``module`` sharded on ``mesh`` by the rule table ``specs_of``
+    (unchanged without a mesh)."""
+    return module if mesh is None else sharding.place(module, specs_of(module), mesh)
+
+
+def gnn_params_from_numpy(kind: str, tree: dict, cfg, *, device="cuda",
+                          mesh=None) -> torch.nn.Module:
     """The port's ``kind`` module (``"pna"``, ``"meshgraphnet"``, ``"mace"``,
     ``"dimenet"``) built for ``cfg`` on ``device``, holding the parameter
     ``tree``'s values (e.g. ``jax.tree.map(np.asarray, init_pna(...))``); its
     input and output widths are read off the tree."""
     module = _gnn_module(kind, tree, cfg, device)
     _load_tree(module, tree)
-    return module
+    return _place(module, sharding.gnn_param_specs, mesh)
 
 
 def _unstack(stacked) -> list:
@@ -144,7 +155,7 @@ def _unstack(stacked) -> list:
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def lm_params_from_numpy(tree: dict, cfg, *, device="cuda") -> torch.nn.Module:
+def lm_params_from_numpy(tree: dict, cfg, *, device="cuda", mesh=None) -> torch.nn.Module:
     """The port's ``Transformer`` for ``cfg`` on ``device``, in the dtype of
     the tree's embedding, holding the parameter ``tree`` of
     ``init_lm_params`` (e.g. ``jax.tree.map(np.asarray, params)``): its
@@ -161,34 +172,37 @@ def lm_params_from_numpy(tree: dict, cfg, *, device="cuda") -> torch.nn.Module:
     module = Transformer(cfg, generator=torch.Generator().manual_seed(0), device=device,
                          dtype=dtype)
     _load_tree(module, tree)
-    return module
+    return _place(module, sharding.lm_param_specs, mesh)
 
 
-def recsys_params_from_numpy(tree: dict, cfg, *, device="cuda") -> torch.nn.Module:
+def recsys_params_from_numpy(tree: dict, cfg, *, device="cuda", mesh=None) -> torch.nn.Module:
     """The port's ``DeepFM`` for ``cfg`` on ``device`` holding the parameter
     ``tree`` of ``init_deepfm``, leaf by leaf as above."""
     from repro_torch.models.recsys import DeepFM
 
     module = DeepFM(cfg, generator=torch.Generator().manual_seed(0), device=device)
     _load_tree(module, tree)
-    return module
+    return _place(module, sharding.recsys_param_specs, mesh)
 
 
 _PARAMS_FROM_NUMPY = {
-    "gnn": lambda tree, cfg, device: gnn_params_from_numpy(cfg.kind, tree, cfg, device=device),
-    "lm": lambda tree, cfg, device: lm_params_from_numpy(tree, cfg, device=device),
-    "recsys": lambda tree, cfg, device: recsys_params_from_numpy(tree, cfg, device=device),
+    "gnn": lambda tree, cfg, device, mesh: gnn_params_from_numpy(
+        cfg.kind, tree, cfg, device=device, mesh=mesh),
+    "lm": lambda tree, cfg, device, mesh: lm_params_from_numpy(
+        tree, cfg, device=device, mesh=mesh),
+    "recsys": lambda tree, cfg, device, mesh: recsys_params_from_numpy(
+        tree, cfg, device=device, mesh=mesh),
 }
 
 
-def _moments(family: str, tree: dict, cfg, device) -> dict:
+def _moments(family: str, tree: dict, cfg, device, mesh) -> dict:
     """A moment tree (the parameter tree's layout) -> ``{parameter name:
     tensor}`` in the tree's own dtype, laid out by the family's module."""
     dtypes = {np.asarray(leaf).dtype.name for leaf in _leaves(tree)}
     if len(dtypes) != 1:
         raise ValueError(f"moments of mixed dtypes {sorted(dtypes)}")
     dtype = _DTYPES[dtypes.pop()]
-    module = _PARAMS_FROM_NUMPY[family](tree, cfg, device)
+    module = _PARAMS_FROM_NUMPY[family](tree, cfg, device, mesh)
     return {n: p.detach().to(dtype) for n, p in module.named_parameters()}
 
 
@@ -203,22 +217,22 @@ def _leaves(tree):
         yield tree
 
 
-def train_state_from_numpy(family: str, tree: dict, cfg, *, device="cuda") -> dict:
+def train_state_from_numpy(family: str, tree: dict, cfg, *, device="cuda", mesh=None) -> dict:
     """The port's train state ``{"params": module, "opt": {"mu", "nu",
     "count"}}`` on ``device`` from a JAX train state ``{"params", "opt":
     {"mu", "nu", "count"}}`` as numpy (e.g. ``jax.tree.map(np.asarray,
     state)``), ``family`` one of ``"gnn"``, ``"lm"``, ``"recsys"``.  The
     moments keep their dtype and are keyed by the module's parameter names;
-    ``count`` is an int32 scalar."""
+    ``count`` is an int32 scalar.  On a ``mesh``, this rank's shards."""
     if family not in _PARAMS_FROM_NUMPY:
         raise ValueError(f"unknown family {family!r}")
-    module = _PARAMS_FROM_NUMPY[family](tree["params"], cfg, device)
+    module = _PARAMS_FROM_NUMPY[family](tree["params"], cfg, device, mesh)
     opt = tree["opt"]
     return {
         "params": module,
         "opt": {
-            "mu": _moments(family, opt["mu"], cfg, device),
-            "nu": _moments(family, opt["nu"], cfg, device),
+            "mu": _moments(family, opt["mu"], cfg, device, mesh),
+            "nu": _moments(family, opt["nu"], cfg, device, mesh),
             "count": torch.as_tensor(np.asarray(opt["count"]), dtype=torch.int32,
                                      device=torch.device(device)),
         },

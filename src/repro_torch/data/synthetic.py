@@ -14,7 +14,8 @@ the host would take seconds to draw each step.  The CPU's stream and a
 card's differ.
 
 Data-parallel ranks all draw the global batch and take their rows of it
-(``shard_batch``), so a shard is exactly rows of the one-rank batch.
+(``shard_batch``, by their data index), so a shard is exactly rows of the
+one-rank batch.
 """
 
 from __future__ import annotations
@@ -73,9 +74,9 @@ def make_batch(abstract_inputs: dict, *, seed: int, step: int, bounds: dict | No
 
 
 def shard_batch(batch: dict, mesh) -> dict:
-    """This data rank's rows of a global batch: rank r of D takes rows
-    ``[r*B/D, (r+1)*B/D)`` of every input (the reference's ``P(dp, ...)``
-    placement).  A batch of B rows that D ranks cannot split evenly
+    """This data rank's rows of a global batch: the rank at data index r of
+    D takes rows ``[r*B/D, (r+1)*B/D)`` of every input (the reference's
+    ``P(dp, ...)`` placement; the model axis shares them).  A batch of B rows that D ranks cannot split evenly
     raises."""
     d = dp_size(mesh)
     rows = {int(t.shape[0]) for t in batch.values()}
@@ -84,7 +85,7 @@ def shard_batch(batch: dict, mesh) -> dict:
     (b,) = rows
     if b % d:
         raise ValueError(f"a batch of {b} rows cannot be split over {d} data ranks")
-    lo = mesh.rank * (b // d)
+    lo = mesh.data.rank * (b // d)
     return {name: t[lo:lo + b // d] for name, t in batch.items()}
 
 

@@ -22,21 +22,42 @@ counted and timed in one place (``CollectiveStats``):
 ``partition_mesh(1)`` outside a launched rank is a legal one-rank mesh; the
 engine takes its dense path for it.
 
-Data-parallel training (``launch.mesh.make_host_mesh``'s ``("data",
-"model")`` mesh, ``launch.steps``) reads two more things here: ``dp_axes``
-and ``dp_size``, the batch axes of a mesh and their ranks, and
-``all_reduce_grads``, the data axis's gradient mean, summed bucket by
-bucket through ``PartitionMesh.all_reduce`` so each call is counted.
+Data-parallel training (``launch.mesh``'s ``("data", "model")`` mesh,
+``launch.steps``) reads two more things here: ``dp_axes`` and ``dp_size``,
+the batch axes of a mesh and their ranks, and ``all_reduce_grads``, the
+data axis's gradient mean over the leaves the data axis does not split,
+summed bucket by bucket through ``PartitionMesh.all_reduce`` so each call
+is counted.
 
-The module also keeps the reference's parameter rule tables
-(``lm_param_specs``, ``gnn_param_specs``, ``recsys_param_specs``) as data:
-parameter name -> mesh-axis tuple.
+The model axis and FSDP (``launch.mesh.make_mesh``'s ``(data = D, model
+= T)`` mesh) read the rest:
+
+  * the reference's rule tables (``lm_param_specs``, ``gnn_param_specs``,
+    ``recsys_param_specs``: parameter name -> mesh-axis tuple), fitted to a
+    mesh by ``fit_specs`` (the reference's ``_fit_specs``: an axis whose
+    size does not divide its dimension is dropped);
+  * ``place``: cuts each parameter of a module to the shard its fitted
+    spec gives this rank (``shard_of``; ``gather_full`` puts it back
+    together) and records the specs (``Placement``);
+  * the autograd pairs the models call: ``copy_to_model`` (identity
+    forward, all-reduce backward), ``reduce_from_model`` (all-reduce
+    forward, identity backward), ``gather_from_model`` (all-gather
+    forward, the rank's slice backward) and ``fsdp_gather`` (all-gather
+    over ``data`` forward, reduce-scatter of the gradient backward), and
+    ``weights``, which hands a layer its parameters gathered as it needs
+    them;
+  * ``PartitionMesh.reduce_scatter``, counted like the others (gloo runs
+    it on CUDA tensors too).
+
+A collective over an axis of one rank is no call at all: it returns its
+input (a copy where the call would give a new tensor) and counts nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import types
 from typing import Any
 
 import numpy as np
@@ -107,6 +128,8 @@ class PartitionMesh:
     def all_reduce(self, t: torch.Tensor, op: str = "max") -> torch.Tensor:
         """``MAX`` or ``SUM`` over the ranks; returns a new tensor."""
         red = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}[op]
+        if self.world_size == 1:
+            return t.clone()
         t0 = time.perf_counter()
         h = _wire(t).clone()  # the reduction is in place; the input stays
         dist.all_reduce(h, op=red, group=self.group)
@@ -143,6 +166,8 @@ class PartitionMesh:
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """``[...]`` on every rank -> ``[D, ...]`` (rank order)."""
+        if self.world_size == 1:
+            return t[None].clone()
         t0 = time.perf_counter()
         h = _wire(t)
         out = h.new_empty((self.world_size, *h.shape))
@@ -150,8 +175,26 @@ class PartitionMesh:
         self.stats.add("all_gather", h.numel() * h.element_size(), time.perf_counter() - t0)
         return _unwire(out, t.dtype)
 
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """``[D, ...]`` on every rank -> ``[...]``: the sum over the ranks of
+        their block ``rank`` (``reduce_scatter_tensor`` on flat views, the
+        layout gloo takes)."""
+        if t.shape[0] != self.world_size:
+            raise ValueError(f"reduce_scatter wants [{self.world_size}, ...], got "
+                             f"{tuple(t.shape)}")
+        if self.world_size == 1:
+            return t[0].clone()
+        t0 = time.perf_counter()
+        h = t.contiguous()
+        out = h.new_empty(h.shape[1:])
+        dist.reduce_scatter_tensor(out.view(-1), h.view(-1), group=self.group)
+        self.stats.add("reduce_scatter", h.numel() * h.element_size(), time.perf_counter() - t0)
+        return out
+
     def barrier(self) -> None:
         """Every rank waits here until all have arrived."""
+        if self.world_size == 1:
+            return
         t0 = time.perf_counter()
         dist.barrier(group=self.group)
         self.stats.add("barrier", 0, time.perf_counter() - t0)
@@ -233,15 +276,19 @@ def dp_size(mesh) -> int:
     return mesh.data.world_size
 
 
-def all_reduce_grads(named_grads: dict, params: dict, mesh: PartitionMesh) -> dict:
+def all_reduce_grads(named_grads: dict, params: dict, mesh: PartitionMesh, *,
+                     summed: frozenset = frozenset()) -> dict:
     """The mean over ``mesh``'s ranks of each rank's gradients.
 
     ``named_grads`` maps each name of ``params`` (name -> parameter, in an
     order every rank shares) to its gradient, or None where autograd gave
     none on this rank: it counts as zeros, so every rank sends the same
-    bytes.  The gradients of one dtype are laid end to end and cut into
-    buckets of at most ``GRAD_BUCKET_BYTES``, a tensor split across two
-    where it straddles a cut; each bucket is summed by one
+    bytes.  The names in ``summed`` are leaves the data axis splits (FSDP):
+    their gradients are already the ranks' sum (``fsdp_gather``'s
+    reduce-scatter) and are only divided by the rank count.  The others'
+    gradients of one dtype are laid end to end and cut into buckets of at
+    most ``GRAD_BUCKET_BYTES``, a tensor split across two where it
+    straddles a cut; each bucket is summed by one
     ``mesh.all_reduce(op="sum")`` in that dtype, divided by the rank count
     and written back into the gradients, in place.  Returns name ->
     gradient, a zero tensor where the rank had None.
@@ -251,8 +298,11 @@ def all_reduce_grads(named_grads: dict, params: dict, mesh: PartitionMesh) -> di
         g = named_grads.get(name)
         out[name] = torch.zeros_like(p) if g is None else g.contiguous()
     by_dtype: dict = {}
-    for g in out.values():
-        by_dtype.setdefault(g.dtype, []).append(g.view(-1))
+    for name, g in out.items():
+        if name in summed:
+            g.div_(mesh.world_size)
+        else:
+            by_dtype.setdefault(g.dtype, []).append(g.view(-1))
     for dtype in sorted(by_dtype, key=str):  # one order on every rank
         cap = max(1, GRAD_BUCKET_BYTES // torch.empty((), dtype=dtype).element_size())
         pieces, n = [], 0
@@ -293,7 +343,7 @@ def _mean_bucket(pieces: list, mesh: PartitionMesh) -> None:
 # holds a layer stack as a module list, so its leaves lack the reference's
 # leading layer axis, and their specs lack its None.  A leaf with no rule
 # raises, so a new parameter cannot fall back to replication unnoticed.
-# Nothing in the port shards a model by them yet.
+# ``fit_specs`` fits them to a mesh and ``place`` shards a module by them.
 
 FSDP = "data"
 MODEL = "model"
@@ -366,4 +416,267 @@ def recsys_param_specs(model: torch.nn.Module) -> dict:
             out[name] = tuple(spec)
         else:
             out[name] = _REPLICATED
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fitting the specs to a mesh, and a rank's shards
+# ---------------------------------------------------------------------------
+
+
+def mesh_sizes(mesh) -> dict:
+    """Axis name -> size, for a ``launch.mesh.HostMesh`` (its ``shape``) or
+    any object with ``axis_names`` and ``devices.shape`` (a JAX mesh, or a
+    stand-in for one)."""
+    if hasattr(mesh, "devices"):
+        return dict(zip(mesh.axis_names, mesh.devices.shape))
+    return dict(mesh.shape)
+
+
+def fit_specs(specs: dict, model, mesh) -> dict:
+    """The reference's ``_fit_specs``: each spec with the axes whose size
+    does not divide their dimension dropped (None), padded with None to
+    the leaf's rank.  ``model`` is a module or a dict name -> full shape."""
+    sizes = mesh_sizes(mesh)
+    shapes = (dict(model) if isinstance(model, dict)
+              else {n: tuple(p.shape) for n, p in model.named_parameters()})
+    out = {}
+    for name, spec in specs.items():
+        shape = shapes[name]
+        fitted = []
+        for dim, ax in enumerate(tuple(spec) + (None,) * (len(shape) - len(spec))):
+            keep = ax is not None and shape[dim] % int(sizes.get(ax, 1)) == 0
+            fitted.append(ax if keep else None)
+        out[name] = tuple(fitted)
+    return out
+
+
+def _axis(mesh, ax: str) -> PartitionMesh:
+    return {"data": mesh.data, "model": mesh.model}[ax]
+
+
+def shard_of(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of ``full`` under ``spec`` (a view): along each
+    dimension ``spec`` names an axis, the rank's index on that axis picks
+    one of its size's equal slices."""
+    t = full
+    for dim, ax in enumerate(spec):
+        if ax is not None:
+            m = _axis(mesh, ax)
+            t = t.tensor_split(m.world_size, dim=dim)[m.rank]
+    return t
+
+
+def gather_full(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The whole tensor from every rank's ``shard_of`` block (collective:
+    every rank of the axes ``spec`` names calls it, in one order)."""
+    t = local
+    for dim, ax in enumerate(spec):
+        if ax is not None:
+            t = _cat_gathered(_axis(mesh, ax).all_gather(t), dim)
+    return t
+
+
+def _cat_gathered(every: torch.Tensor, dim: int) -> torch.Tensor:
+    """``[D, ...]`` from ``all_gather`` -> the D blocks laid end to end
+    along ``dim``."""
+    return torch.cat(list(every.unbind(0)), dim=dim)
+
+
+def _blocks(t: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """``t`` cut into ``n`` equal blocks along ``dim``, stacked: ``[n, ...]``."""
+    return torch.stack(t.tensor_split(n, dim=dim))
+
+
+# ---------------------------------------------------------------------------
+# the autograd pairs of the model axis and FSDP
+# ---------------------------------------------------------------------------
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_reduce(g.contiguous(), op="sum"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis.all_reduce(x, op="sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherAlong(torch.autograd.Function):
+    """All-gather along ``dim`` forward.  Backward, the rank's block of the
+    gradient: sliced from one every rank holds whole (replicated work
+    downstream), or, with ``scatter``, reduce-scattered from the parts each
+    rank holds (its own rows' work on a gathered FSDP weight)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, scatter):
+        ctx.axis, ctx.dim, ctx.scatter = axis, dim, scatter
+        return _cat_gathered(axis.all_gather(x.contiguous()), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim = ctx.axis, ctx.dim
+        if ctx.scatter:
+            out = axis.reduce_scatter(_blocks(g, axis.world_size, dim))
+        else:
+            out = g.tensor_split(axis.world_size, dim=dim)[axis.rank].contiguous()
+        return out, None, None, None
+
+
+def copy_to_model(x: torch.Tensor, axis: PartitionMesh | None) -> torch.Tensor:
+    """A replicated tensor entering model-split work: identity forward, the
+    gradient summed over the model axis backward (each rank's part)."""
+    if axis is None or axis.world_size == 1:
+        return x
+    return _CopyToModel.apply(x, axis)
+
+
+def reduce_from_model(x: torch.Tensor, axis: PartitionMesh | None) -> torch.Tensor:
+    """Model-split partial sums leaving to replicated work: summed over the
+    model axis forward, the (replicated) gradient passed through backward."""
+    if axis is None or axis.world_size == 1:
+        return x
+    return _ReduceFromModel.apply(x, axis)
+
+
+def gather_from_model(x: torch.Tensor, axis: PartitionMesh | None,
+                      dim: int = -1) -> torch.Tensor:
+    """The model ranks' blocks of ``x`` laid end to end along ``dim``; the
+    gradient (replicated work downstream) gives back the rank's block."""
+    if axis is None or axis.world_size == 1:
+        return x
+    return _GatherAlong.apply(x, axis, dim % x.dim(), False)
+
+
+def fsdp_gather(w: torch.Tensor, axis: PartitionMesh | None, dim: int) -> torch.Tensor:
+    """A parameter's FSDP shards gathered over the data axis along ``dim``;
+    backward, the gradient reduce-scattered to the shards (the ranks'
+    sum: ``all_reduce_grads`` divides it by the rank count)."""
+    if axis is None or axis.world_size == 1:
+        return w
+    return _GatherAlong.apply(w, axis, dim, True)
+
+
+# ---------------------------------------------------------------------------
+# a placed module
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(eq=False)
+class Placement:
+    """How a module's parameters lie on a mesh: the mesh and each
+    parameter's fitted spec by name (``place`` sets it as the module's
+    ``placement``)."""
+
+    mesh: Any
+    specs: dict
+
+    def split_axes(self, name: str) -> tuple:
+        """The axes of more than one rank that split parameter ``name``."""
+        sizes = self.mesh.shape
+        return tuple(a for a in ("data", "model")
+                     if a in self.specs[name] and sizes[a] > 1)
+
+    def data_split(self) -> frozenset:
+        """The names of the parameters the data axis splits."""
+        return frozenset(n for n in self.specs if "data" in self.split_axes(n))
+
+    def global_norm(self, grads: dict) -> torch.Tensor:
+        """The float32 norm of the whole gradient: each leaf's local squares
+        summed with the leaves the same axes split, and each sum all-reduced
+        over those axes (a replicated leaf counts once).  One all-reduce over
+        ``data`` where it splits a leaf, then one over ``model`` where it
+        does."""
+        dev = next(iter(grads.values())).device
+        sums = {k: torch.zeros((), dtype=torch.float32, device=dev)
+                for k in ((), ("data",), ("model",), ("data", "model"))}
+        for name in self.specs:
+            g = grads.get(name)
+            if g is not None:
+                key = self.split_axes(name)
+                sums[key] = sums[key] + torch.sum(torch.square(g.to(torch.float32)))
+        split = {a for n in self.specs for a in self.split_axes(n)}
+        d = torch.stack([sums[("data", "model")], sums[("data",)]])
+        if "data" in split:
+            d = self.mesh.data.all_reduce(d, op="sum")
+        m = torch.stack([d[0], sums[("model",)]])
+        if "model" in split:
+            m = self.mesh.model.all_reduce(m, op="sum")
+        return torch.sqrt(sums[()] + d[1] + m[1] + m[0])
+
+
+def place(module: torch.nn.Module, specs: dict, mesh) -> torch.nn.Module:
+    """Shard ``module`` in place: each parameter becomes this rank's block
+    of itself under ``specs[name]`` fitted to ``mesh`` (``fit_specs``), a
+    tensor of its own; every submodule learns its own parameters' specs
+    (``_shard_specs``, read by ``weights``) and the module its
+    ``placement``.  Returns it."""
+    missing = sorted(set(n for n, _ in module.named_parameters()) - set(specs))
+    if missing:
+        raise KeyError(f"no spec for {missing}")
+    specs = fit_specs(specs, module, mesh)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            p.data = shard_of(p.data, specs[name], mesh).clone(
+                memory_format=torch.contiguous_format)
+    for prefix, sub in module.named_modules():
+        sub._shard_specs = {
+            n: specs[f"{prefix}.{n}" if prefix else n]
+            for n, _ in sub.named_parameters(recurse=False)}
+    module.placement = Placement(mesh, dict(specs))
+    return module
+
+
+def placement_of(module: torch.nn.Module) -> Placement | None:
+    """The module's ``Placement``, or None where ``place`` never ran."""
+    return getattr(module, "placement", None)
+
+
+def model_split(module: torch.nn.Module, names, mesh) -> bool:
+    """Whether the model axis (of more than one rank) splits every one of
+    ``module``'s parameters ``names``: the layer then runs its
+    tensor-parallel path on its own blocks."""
+    specs = getattr(module, "_shard_specs", None)
+    if mesh is None or specs is None or mesh.model.world_size == 1:
+        return False
+    return all(MODEL in specs[n] for n in names)
+
+
+def gathered_matmul(x: torch.Tensor, w: torch.Tensor, axis: PartitionMesh | None):
+    """``x @ w`` whole, where ``axis`` (the model axis, or None) splits
+    ``w``'s columns: each rank's block of the product, gathered."""
+    if axis is None or axis.world_size == 1:
+        return x @ w
+    return gather_from_model(copy_to_model(x, axis) @ w, axis)
+
+
+def weights(module: torch.nn.Module, mesh, names, *, local: bool):
+    """``module``'s parameters ``names`` as the layer computes with them (a
+    namespace, attribute per name): FSDP shards gathered over the data axis
+    (``fsdp_gather``), and the model axis's blocks kept (``local``, the
+    tensor-parallel path) or gathered too (``gather_from_model``, the
+    replicated path).  Without a placement, the parameters themselves."""
+    specs = getattr(module, "_shard_specs", None)
+    out = types.SimpleNamespace()
+    for n in names:
+        w = getattr(module, n)
+        if mesh is not None and specs is not None:
+            for dim, ax in enumerate(specs[n]):
+                if ax == FSDP:
+                    w = fsdp_gather(w, mesh.data, dim)
+                elif ax == MODEL and not local:
+                    w = gather_from_model(w, mesh.model, dim)
+        setattr(out, n, w)
     return out

@@ -25,21 +25,32 @@ for the CPU), its kernels chosen as ``models`` chooses them: on a card the
 segment-sum kernel, and the flash kernel only where no gradient is asked
 for; the serving steps under ``torch.inference_mode()``.
 
-``mesh=`` (``launch.mesh.make_host_mesh``) places a train step on the data
-axis of a ``(data = D, model = 1)`` mesh, the reference's batch specs in
-behaviour: every rank holds the whole model and optimizer state and takes
-the global batch; the step takes the rank's rows of it (the reference's
-``P(dp, None)``; an LM batch D cannot split raises, a recsys batch is then
-replicated, as ``_fit_specs`` leaves it), the local mean loss's gradients,
-their mean over the ranks (``dist.sharding.all_reduce_grads``) and then
-AdamW, whose clip reads the global norm; the loss returned is the mean over
-the ranks, and an MoE layer's groups and loads are the global batch's
-(``models.moe``), so the router bias moves as on one rank.  One step on D
-ranks equals the one-rank step on the same global batch up to float
-reassociation, and the ranks' states stay equal bit for bit.  There are no
-parameter ``PartitionSpec``s yet (the ``model`` axis and FSDP are ROADMAP
-Queue A item 1); GNN train steps and the serving kinds on D > 1 ranks
-raise (items 3 and 2).  A one-rank mesh is ``mesh=None``.
+``mesh=`` (``launch.mesh.make_mesh``: a ``(data = D, model = T)`` mesh)
+places a bundle's state by the reference's rule tables
+(``dist.sharding.lm_param_specs`` / ``recsys_param_specs``, fitted to the
+mesh by ``fit_specs``, the reference's ``_fit_specs``): every rank holds
+exactly the shard of each parameter, and of its two AdamW moments, that
+its fitted spec gives it (``dist.sharding.place``), and the models compute
+on those shards as ``models.transformer`` and ``models.recsys`` say:
+tensor-, expert- and vocab-parallel over ``model``, FSDP over ``data`` (the
+LM train kinds whenever D > 1, as the reference's; the prefill drops FSDP
+where the parameters fit 4 GiB a rank on the model axis alone,
+``param_count * 2 / T``).  The batch is split over ``data`` only
+(``shard_batch``: the reference's ``P(dp, None)``; an LM batch D cannot
+split raises, a recsys batch is then replicated, as ``_fit_specs`` leaves
+it) and replicated over ``model``.  A train step takes the local mean
+loss's gradients (FSDP leaves already summed over ``data`` by their
+gathers' reduce-scatter), their mean over the data ranks
+(``dist.sharding.all_reduce_grads``), then AdamW, whose clip reads the
+global norm over every axis that splits a leaf; the loss returned is the
+mean over the data ranks, and an MoE layer's groups and loads are the
+global batch's (``models.moe``), so the router bias moves as on one rank.
+One step on a ``(D, T)`` mesh equals the one-rank step on the same global
+batch up to float reassociation, and the state gathered whole
+(``launch.train.state_tree``) is the same whichever layout produced it.
+The prefill returns the global batch's next tokens on every rank.  GNN
+train steps and the decode, serve and retrieval kinds on a mesh raise
+(ROADMAP Queue A items 3 and 2).  A one-rank mesh is ``mesh=None``.
 """
 
 from __future__ import annotations
@@ -54,7 +65,15 @@ from repro_torch.configs import ARCHS, ArchSpec
 from repro_torch.configs.base import GraphShape, LMShape, RecsysShape
 from repro_torch.configs.registry import reduced_config
 from repro_torch.data.synthetic import InputSpec, shard_batch
-from repro_torch.dist.sharding import all_reduce_grads, dp_size
+from repro_torch.dist.sharding import (
+    FSDP,
+    all_reduce_grads,
+    dp_size,
+    lm_param_specs,
+    place,
+    placement_of,
+    recsys_param_specs,
+)
 from repro_torch.kernels.segment_sum import segment_sum
 from repro_torch.models.common import model_device, top_k
 from repro_torch.models.gnn import MACE, PNA, DimeNet, MeshGraphNet
@@ -63,6 +82,7 @@ from repro_torch.models.recsys import DeepFM, deepfm_logits, deepfm_loss, retrie
 from repro_torch.models.transformer import (
     Transformer,
     _logits,
+    gather_logits,
     init_lm_cache,
     lm_decode_step,
     lm_hidden,
@@ -96,8 +116,8 @@ def _train_step(loss_of: Callable, opt_cfg: AdamWConfig, after: Callable | None 
     batch) -> (loss, aux)`` differentiated by autograd, one AdamW update in
     place, then ``after(model, aux)`` (outside the gradient path).  On a
     ``mesh`` (of D > 1 data ranks: ``build_bundle`` passes None for one):
-    ``shard(batch, mesh)`` first, the gradients averaged over the ranks
-    before the update, and the loss returned their mean."""
+    ``shard(batch, mesh)`` first, the gradients averaged over the data
+    ranks before the update, and the loss returned their mean."""
     dp = mesh is not None
 
     def step(state, batch):
@@ -112,7 +132,9 @@ def _train_step(loss_of: Callable, opt_cfg: AdamWConfig, after: Callable | None 
         loss = loss.detach()
         if dp:
             # the sum comes before the update: AdamW clips by the global norm
-            grads = all_reduce_grads(grads, dict(named), mesh.data)
+            placed = placement_of(model)
+            grads = all_reduce_grads(grads, dict(named), mesh.data,
+                                     summed=placed.data_split() if placed else frozenset())
             loss = mesh.data.all_reduce(loss, op="sum") / dp_size(mesh)
         gnorm = adamw_update(model, grads, state["opt"], opt_cfg)
         if after is not None:
@@ -121,6 +143,18 @@ def _train_step(loss_of: Callable, opt_cfg: AdamWConfig, after: Callable | None 
         return state, {"loss": loss, "gnorm": gnorm}
 
     return step
+
+
+def _placed(model: torch.nn.Module, specs_of: Callable, mesh, *, fsdp: bool = True):
+    """``model`` sharded on ``mesh`` by its rule table ``specs_of``
+    (``fsdp=False`` drops the data axis from every spec); unchanged off a
+    mesh."""
+    if mesh is None:
+        return model
+    specs = specs_of(model)
+    if not fsdp:
+        specs = {n: tuple(None if ax == FSDP else ax for ax in s) for n, s in specs.items()}
+    return place(model, specs, mesh)
 
 
 def _train_init(make_model: Callable[[int], torch.nn.Module], opt_cfg: AdamWConfig):
@@ -143,8 +177,14 @@ def _lm_bundle(spec: ArchSpec, shape: LMShape, *, reduced: bool, config,
         shape = LMShape(shape.name, seq_len=32, global_batch=4, kind=shape.kind)
     name = f"{spec.arch_id}:{shape.name}"
 
+    # serving has no optimizer state: where the model axis alone fits 4 GiB a
+    # rank, the prefill drops FSDP (no gathers over data), as the reference
+    tp = 1 if mesh is None else mesh.shape["model"]
+    fsdp = shape.kind == "train" or cfg.param_count() * 2 / tp > 4 * 2**30
+
     def init_params(seed: int) -> Transformer:
-        return Transformer(cfg, generator=_generator(device, seed), device=device)
+        model = Transformer(cfg, generator=_generator(device, seed), device=device)
+        return _placed(model, lm_param_specs, mesh, fsdp=fsdp)
 
     if shape.kind == "train":
         # bfloat16 moments halve the optimizer's bytes (the reference's knob)
@@ -176,10 +216,15 @@ def _lm_bundle(spec: ArchSpec, shape: LMShape, *, reduced: bool, config,
         @torch.inference_mode()
         def prefill(state, batch):
             model = state["params"]
-            h, _, _ = lm_hidden(model, batch["tokens"])
-            # one next token: project only the last position
-            logits = _logits(model, h[:, -1:])
-            return {"next_token": logits[:, -1].argmax(dim=-1)}
+            tokens = batch["tokens"] if mesh is None else shard_batch(batch, mesh)["tokens"]
+            h, _, _ = lm_hidden(model, tokens, mesh=mesh)
+            # one next token: project only the last position (on a model
+            # axis, the vocab blocks gathered for the argmax)
+            logits = gather_logits(model, _logits(model, h[:, -1:], mesh), mesh)
+            nxt = logits[:, -1].argmax(dim=-1)
+            if mesh is not None:  # every data rank's rows, in rank order
+                nxt = mesh.data.all_gather(nxt).reshape(-1)
+            return {"next_token": nxt}
 
         return StepBundle(
             name=name, step_fn=prefill,
@@ -338,7 +383,8 @@ def _recsys_bundle(spec: ArchSpec, shape: RecsysShape, *, reduced: bool, config,
     name = f"{spec.arch_id}:{shape.name}"
 
     def init_model(seed: int) -> DeepFM:
-        return DeepFM(cfg, generator=_generator(device, seed), device=device)
+        model = DeepFM(cfg, generator=_generator(device, seed), device=device)
+        return _placed(model, recsys_param_specs, mesh)
 
     def init_state(seed: int) -> dict:
         return {"params": init_model(seed)}
@@ -347,7 +393,7 @@ def _recsys_bundle(spec: ArchSpec, shape: RecsysShape, *, reduced: bool, config,
         opt_cfg = AdamWConfig(weight_decay=0.0)
 
         def loss_of(model, batch):
-            return deepfm_loss(model, batch["ids"], batch["labels"]), None
+            return deepfm_loss(model, batch["ids"], batch["labels"], mesh), None
 
         return StepBundle(
             name=name, step_fn=_train_step(loss_of, opt_cfg, mesh=mesh,
@@ -403,25 +449,25 @@ def build_bundle(arch_id: str, shape_name: str, *, reduced: bool = False, config
     ``reduced_config`` under ``reduced``, or ``config`` where the caller
     passes one (e.g. the published widths at a cut depth).  An LM's
     parameters are bfloat16, as the reference's; its prefill runs GQA on
-    the flash kernel on a card (``models.attention``), its train step the
-    plain attention paths.  ``device``: the mesh's where there is one, else
-    the card unless the caller asks for the CPU.  ``mesh``: a train step's
-    data axis (see the module docstring)."""
+    the flash kernel on a card (``models.attention``), on a mesh each
+    model rank on its own heads; its train step the plain attention paths.
+    ``device``: the mesh's where there is one, else the card unless the
+    caller asks for the CPU.  ``mesh``: see the module docstring."""
     spec = ARCHS[arch_id]
     shape = spec.shapes()[shape_name]
     if mesh is not None:
         if device is not None and torch.device(device).type != mesh.device.type:
             raise ValueError(f"device {device!r} is not the mesh's {mesh.device}")
         device = mesh.device
-        if dp_size(mesh) == 1:
+        if mesh.size == 1:
             mesh = None  # one rank: the one-device step, bit for bit
     device = model_device("cuda" if device is None else device)
     if mesh is not None:
         if spec.family == "gnn":
             raise NotImplementedError(
-                f"{arch_id}: GNN train steps on {dp_size(mesh)} data ranks (edge-sharded "
-                "aggregates) are not ported yet: ROADMAP Queue A item 3")
-        if shape.kind != "train":
+                f"{arch_id}: GNN train steps on a {tuple(mesh.shape.values())} mesh "
+                "(edge-sharded aggregates) are not ported yet: ROADMAP Queue A item 3")
+        if shape.kind != "train" and not (spec.family == "lm" and shape.kind == "prefill"):
             raise NotImplementedError(
                 f"{arch_id}:{shape_name}: {shape.kind} bundles on a mesh are not ported "
                 "yet: ROADMAP Queue A item 2")

@@ -14,24 +14,28 @@
   * ``crash_at``: raises at that step, so a test can restart the run; a
     non-finite loss raises too.  Either way the save in flight is drained
     first, so the checkpoint before the failing step is on disk.
-  * data parallel (``ranks``): the steps run on the data axis of
-    ``launch.mesh.make_host_mesh`` (``launch.steps``: each rank its rows of
-    the global batch, the gradients averaged over the ranks).  Outside a
-    process group ``train(..., ranks=D)`` starts D ranks with
-    ``dist.run_ranks`` (NCCL where each has a card of its own, gloo
-    otherwise) and returns rank 0's losses, step times and collective
-    stats, and ``ranks_identical``: every rank's final state equal bit for
-    bit, read off per-tensor digests (no module comes back to the caller).
-    Rank 0 alone writes checkpoints; the ranks meet after its last save.
-    A restore loads the newest checkpoint onto every rank, whatever rank
-    count wrote it: the state is replicated.  A failure every rank meets
-    at the same step (an injected crash, a diverged loss: the loss is the
-    ranks' mean) drains rank 0's save, meets the others and comes back to
-    the caller as the one-rank error -- ``run_ranks`` kills every rank once
-    one exits non-zero, which would cut off the save the restart needs.
+  * a mesh (``ranks`` data ranks times ``model`` model ranks): the steps
+    run on ``launch.mesh.make_mesh(data=ranks, model=model)``
+    (``launch.steps``: each data rank its rows of the global batch, the
+    state sharded by the rule tables, the gradients averaged over the data
+    ranks).  Outside a process group ``train(..., ranks=D, model=T)``
+    starts D * T ranks with ``dist.run_ranks`` (NCCL where each has a card
+    of its own, gloo otherwise) and returns rank 0's losses, step times
+    and collective stats, and ``ranks_identical``: every rank's gathered
+    final state equal bit for bit, read off per-tensor digests (no module
+    comes back to the caller).  Rank 0 alone writes checkpoints, of the
+    state gathered whole (``state_tree``, which every rank calls); the
+    ranks meet after its last save.  A restore loads the newest
+    checkpoint whole and cuts each rank's shard of it, whatever layout
+    wrote it.  A failure every rank meets at the same step (an injected
+    crash, a diverged loss: the loss is the ranks' mean) drains rank 0's
+    save, meets the others and comes back to the caller as the one-rank
+    error -- ``run_ranks`` kills every rank once one exits non-zero, which
+    would cut off the save the restart needs.
 
 The state is the bundle's ``{"params": module, "opt": {...}}``; its
-checkpoint tree is ``{"params": module.state_dict(), "opt": ...}``.
+checkpoint tree is ``{"params": module.state_dict(), "opt": ...}``, each
+tensor whole.
 """
 
 from __future__ import annotations
@@ -47,7 +51,8 @@ from repro_torch.ckpt import Checkpointer, ckpt_path, latest_step, restore_pytre
 from repro_torch.configs import ARCHS
 from repro_torch.data.synthetic import graph_batch, make_batch
 from repro_torch.dist.launch import run_ranks
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.dist.sharding import gather_full, placement_of, shard_of
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import build_bundle
 
 #: a launch of ranks, and each collective in it, fails after this long
@@ -58,17 +63,54 @@ class InjectedCrash(RuntimeError):
     """``crash_at``'s failure."""
 
 
+def _per_param(state: dict, fn) -> dict:
+    """``fn(name, tensor)`` over the parameters and both moments of a
+    train state, in the checkpoint tree's layout."""
+    opt = state["opt"]
+    return {"params": {n: fn(n, t) for n, t in state["params"].state_dict().items()},
+            "opt": {"mu": {n: fn(n, t) for n, t in opt["mu"].items()},
+                    "nu": {n: fn(n, t) for n, t in opt["nu"].items()},
+                    "count": opt["count"]}}
+
+
 def state_tree(state: dict) -> dict:
-    """The checkpoint tree of a train state: tensors only."""
-    return {"params": state["params"].state_dict(), "opt": state["opt"]}
+    """The checkpoint tree of a train state: tensors only, each whole.  On
+    a mesh each parameter and moment is gathered from the ranks' shards
+    (collective: every rank calls it, and gets the whole tree)."""
+    placed = placement_of(state["params"])
+    if placed is None:
+        return {"params": state["params"].state_dict(), "opt": state["opt"]}
+    return _per_param(state, lambda n, t: gather_full(t, placed.specs[n], placed.mesh))
 
 
 def restore_state(path: str, state: dict) -> None:
     """Load the checkpoint at ``path`` into ``state`` (checked against its
-    structure)."""
-    tree = restore_pytree(path, state_tree(state))
-    state["params"].load_state_dict(tree["params"])
-    state["opt"] = tree["opt"]
+    structure): on a mesh, the rank's shard of each tensor, whatever layout
+    wrote it."""
+    placed = placement_of(state["params"])
+    if placed is None:
+        tree = restore_pytree(path, state_tree(state))
+        state["params"].load_state_dict(tree["params"])
+        state["opt"] = tree["opt"]
+        return
+    sizes = placed.mesh.shape
+
+    def whole(n, t):  # a stand-in of the whole tensor's shape, no bytes
+        shape = [s * (sizes[ax] if ax else 1) for s, ax in zip(t.shape, placed.specs[n])]
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+
+    template = _per_param(state, whole)
+    tree = restore_pytree(path, template, device="cpu")
+    model = state["params"]
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(shard_of(tree["params"][n], placed.specs[n], placed.mesh))
+    opt = tree["opt"]
+    state["opt"] = {
+        k: {n: shard_of(t, placed.specs[n], placed.mesh).clone().to(dev)
+            for n, t in opt[k].items()} for k in ("mu", "nu")}
+    state["opt"]["count"] = opt["count"].to(dev)
 
 
 _INT_OF_WIDTH = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -122,12 +164,15 @@ def train(
     device="cuda",
     config=None,
     ranks: int | None = None,
+    model: int | None = None,
 ) -> dict:
     """Train ``arch`` at ``shape`` for ``steps`` steps (counted from 0, a
     resumed run starting at its checkpoint's step) on ``device`` (the card
-    unless the caller asks for the CPU) over ``ranks`` data-parallel ranks:
-    inside a process group its size (``ranks``, if given, must equal it),
-    outside one 1 unless the caller asks for more.
+    unless the caller asks for the CPU) over a mesh of ``ranks``
+    data-parallel times ``model`` model-parallel ranks (``model`` 1 unless
+    given): inside a process group its size (``ranks``, if given, times
+    ``model`` must equal it), outside one ``ranks`` 1 unless the caller
+    asks for more.
 
     Returns ``{"losses", "gnorms", "stragglers", "step_s",
     "resumed_from"}``, ``step_s`` each step's host seconds up to its loss
@@ -140,33 +185,37 @@ def train(
               ckpt_every=ckpt_every, seed=seed, crash_at=crash_at,
               step_timeout_factor=step_timeout_factor, verbose=verbose, device=device,
               config=config)
+    t = 1 if model is None else int(model)
     if dist.is_available() and dist.is_initialized():
-        if ranks is not None and int(ranks) != dist.get_world_size():
-            raise ValueError(f"{ranks} ranks asked for inside a {dist.get_world_size()}-rank "
-                             "process group")
-        return _train_here(make_host_mesh(device=device), **kw)
-    n = 1 if ranks is None else int(ranks)
-    if n == 1:
+        world = dist.get_world_size()
+        d = world // t if ranks is None else int(ranks)
+        if d * t != world:
+            raise ValueError(f"{d} x {t} ranks asked for inside a {world}-rank process group")
+        return _train_here(make_mesh(data=d, model=t, device=device), **kw)
+    d = 1 if ranks is None else int(ranks)
+    if d * t == 1:
         return _train_here(None, **kw)
-    return _train_ranks(n, kw)
+    return _train_ranks(d, t, kw)
 
 
-def _train_ranks(n: int, kw: dict) -> dict:
-    """``train`` on ``n`` ranks started here; see the module docstring."""
+def _train_ranks(d: int, t: int, kw: dict) -> dict:
+    """``train`` on ``d * t`` ranks started here; see the module
+    docstring."""
     verbose = kw["verbose"]
+    n = d * t
     res = run_ranks(_train_rank, n, device=kw["device"], timeout=RANKS_TIMEOUT_S,
-                    kwargs=dict(kw, verbose=False))
+                    kwargs=dict(kw, verbose=False, model=t))
     for r in res:
         if "error" in r:
             kind, msg = r["error"]
             raise {"InjectedCrash": InjectedCrash, "FloatingPointError": FloatingPointError}[
                 kind](msg)
     out = dict(res[0])
-    out.update(ranks=n, backend=res.backend,
+    out.update(ranks=d, backend=res.backend,
                ranks_identical=all(r["digests"] == out["digests"] for r in res))
     if verbose:
         if out["resumed_from"] is not None:
-            print(f"[train] resumed from step {out['resumed_from']} on {n} ranks")
+            print(f"[train] resumed from step {out['resumed_from']} on {d} x {t} ranks")
         first = kw["steps"] - len(out["losses"])
         for i, (loss, dt) in enumerate(zip(out["losses"], out["step_s"])):
             if (first + i) % max(1, kw["steps"] // 10) == 0:
@@ -188,8 +237,7 @@ def _train_rank(**kw) -> dict:
 def _train_here(mesh, *, arch, shape, steps, reduced, ckpt_dir, ckpt_every, seed, crash_at,
                 step_timeout_factor, verbose, device, config) -> dict:
     """The training loop on this process: one rank (``mesh`` None) or one
-    of the mesh's data ranks (``build_bundle`` runs a one-rank mesh as
-    None)."""
+    of the mesh's ranks (``build_bundle`` runs a one-rank mesh as None)."""
     bundle = build_bundle(arch, shape, reduced=reduced, config=config, device=device,
                           mesh=mesh)
     spec = ARCHS[arch]
@@ -237,8 +285,11 @@ def _train_here(mesh, *, arch, shape, steps, reduced, ckpt_dir, ckpt_every, seed
             losses.append(loss)
             if not np.isfinite(loss):
                 raise FloatingPointError(f"loss diverged at step {step}")
-            if ckpt and (step + 1) % ckpt_every == 0:
-                ckpt.save_async(state_tree(state), step + 1)
+            if ckpt_dir and (step + 1) % ckpt_every == 0:
+                tree = state_tree(state)  # every rank gathers a sharded state
+                if ckpt:
+                    ckpt.save_async(tree, step + 1)
+                del tree
             if verbose and (step % max(1, steps // 10) == 0):
                 print(f"[train] step {step}: loss {loss:.4f} ({dt*1e3:.0f} ms)")
     except (InjectedCrash, FloatingPointError):
@@ -249,7 +300,7 @@ def _train_here(mesh, *, arch, shape, steps, reduced, ckpt_dir, ckpt_every, seed
                 ckpt.wait()
         finally:
             if mesh is not None:
-                mesh.data.barrier()
+                mesh.barrier()
         raise
     finally:
         # drain the save in flight: a Python exception (an injected crash, a
@@ -257,14 +308,18 @@ def _train_here(mesh, *, arch, shape, steps, reduced, ckpt_dir, ckpt_every, seed
         # before the failing step must be on disk for the restart
         if ckpt:
             ckpt.wait()
-    if ckpt:
-        ckpt.save_async(state_tree(state), steps)
-        ckpt.wait()
+    if ckpt_dir:
+        tree = state_tree(state)
+        if ckpt:
+            ckpt.save_async(tree, steps)
+            ckpt.wait()
+        del tree
     out = {"losses": losses, "gnorms": gnorms, "stragglers": stragglers,
            "final_state": state, "step_s": durations, "resumed_from": resumed}
     if mesh is not None:
-        mesh.data.barrier()  # the last checkpoint is on disk for every rank
-        out.update(ranks=mesh.shape["data"], stats=mesh.data.stats.snapshot())
+        mesh.barrier()  # the last checkpoint is on disk for every rank
+        out.update(ranks=mesh.shape["data"], mesh=mesh.shape,
+                   stats=mesh.data.stats.snapshot(), model_stats=mesh.model.stats.snapshot())
     return out
 
 
@@ -281,11 +336,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--ranks", type=int,
                     help="data-parallel ranks (default 1)")
+    ap.add_argument("--model", type=int,
+                    help="model-parallel ranks (default 1): the mesh is ranks x model")
     args = ap.parse_args(argv)
     out = train(
         args.arch, args.shape, steps=args.steps, reduced=not args.full,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, seed=args.seed,
-        crash_at=args.crash_at, device=args.device, ranks=args.ranks,
+        crash_at=args.crash_at, device=args.device, ranks=args.ranks, model=args.model,
     )
     if out["losses"]:
         print(f"[train] done; loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}")

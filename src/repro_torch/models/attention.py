@@ -30,6 +30,21 @@ its v dim, which is not the kernel's function, and the reference computes
 it outside any Pallas kernel; so does decode attention (one query row
 against a cache).  MLA caches only the compressed latent ``(c, k_rope)``
 and decodes with the absorbed weights, scoring against the latent directly.
+
+On a mesh whose ``model`` axis splits the projections (``mesh=``, the
+module placed by ``dist.sharding.place``), the full-sequence paths run on
+the rank's heads, as the reference's rule tables place them: GQA's
+``wq``/``wk``/``wv`` are column-parallel (H/T query and Hk/T KV heads a
+rank, which keeps each query head with its KV head) and ``wo`` row-parallel,
+its partial sums summed over the model axis (``reduce_from_model``); on a
+card each rank runs the flash kernel on its own heads.  MLA splits
+``w_uq``/``w_uk``/``w_uv``/``wo`` by head; its latent projections
+``w_dq``/``w_dkv`` feed a norm over the whole latent, so where the model
+axis splits their output dimension the rank gathers those latents over it
+before the norm (``gather_from_model``).  FSDP shards are gathered over the
+data axis where a layer reads them (``dist.sharding.weights``).  A layer
+whose heads the model axis cannot split evenly, or whose spec
+``fit_specs`` left whole, computes with its weights gathered whole.
 """
 
 from __future__ import annotations
@@ -40,6 +55,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.dist.sharding import (
+    copy_to_model,
+    gathered_matmul,
+    model_split,
+    reduce_from_model,
+    weights,
+)
 from repro_torch.kernels.build import validate_backend
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import apply_rope, init_dense, model_device, rms_norm, rope_angles
@@ -155,9 +177,11 @@ def _chunked_sdpa(q, k, v, scale: float, window: int | None):
 
 def gqa_qkv(p: GQAAttention, cfg: LMConfig, x: torch.Tensor, positions=None):
     """The projections of x [B,S,D] after RoPE: q [B,S,H,dh], k and v
-    [B,S,Hk,dh], each a fresh contiguous tensor."""
+    [B,S,Hk,dh], each a fresh contiguous tensor (H and Hk those of ``p``'s
+    weights: a model rank's heads)."""
     b, s, _ = x.shape
-    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dh = cfg.d_head
+    h, hk = p.wq.shape[1] // dh, p.wk.shape[1] // dh
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q = (x @ p.wq).reshape(b, s, h, dh)
@@ -185,13 +209,28 @@ def gqa_attend(q, k, v, cfg: LMConfig, *, backend: str | None = None) -> torch.T
     return _sdpa(q, k, v, causal_mask(s, cfg.sliding_window, q.device), _scale(dh))
 
 
+_GQA = ("wq", "wk", "wv", "wo")
+
+
+def _heads_axis(p, names, heads: tuple, mesh):
+    """The model axis where it splits ``p``'s head projections ``names``
+    and every head count of ``heads``; else None (the replicated path)."""
+    if not model_split(p, names, mesh):
+        return None
+    t = mesh.model.world_size
+    return mesh.model if all(n % t == 0 for n in heads) else None
+
+
 def gqa_forward(p: GQAAttention, cfg: LMConfig, x: torch.Tensor, *, positions=None,
-                backend: str | None = None) -> torch.Tensor:
-    """Full-sequence causal attention. x [B,S,D] -> [B,S,D]."""
+                backend: str | None = None, mesh=None) -> torch.Tensor:
+    """Full-sequence causal attention. x [B,S,D] -> [B,S,D]; on ``mesh``'s
+    model axis the rank's heads (see the module docstring)."""
     b, s, _ = x.shape
-    q, k, v = gqa_qkv(p, cfg, x, positions)
+    axis = _heads_axis(p, _GQA, (cfg.n_heads, cfg.n_kv_heads), mesh)
+    w = weights(p, mesh, _GQA, local=axis is not None)
+    q, k, v = gqa_qkv(w, cfg, copy_to_model(x, axis), positions)
     out = gqa_attend(q, k, v, cfg, backend=backend)
-    return out.reshape(b, s, -1) @ p.wo
+    return reduce_from_model(out.reshape(b, s, -1) @ w.wo, axis)
 
 
 def cache_shapes(cfg: LMConfig, batch: int, cache_len: int) -> dict:
@@ -268,42 +307,57 @@ class MLAAttention(nn.Module):
         self.wo = nn.Parameter(init_dense(generator, h * m.v_head_dim, d, dtype))
 
 
-def _mla_q(p: MLAAttention, cfg: LMConfig, x, positions):
+def _mla_q(p: MLAAttention, cfg: LMConfig, x, positions, heads=None, lat=None):
+    """(q_nope, q_rope) of ``p``'s heads; ``heads``/``lat``: the model axis
+    where it splits the heads / ``w_dq``'s latent (gathered before its
+    norm)."""
     m = cfg.mla
     b, s, _ = x.shape
     qk = m.qk_nope_dim + m.qk_rope_dim
-    q_lat = rms_norm(x @ p.w_dq, p.q_norm)
-    q = (q_lat @ p.w_uq).reshape(b, s, cfg.n_heads, qk)
+    q_lat = copy_to_model(rms_norm(gathered_matmul(x, p.w_dq, lat), p.q_norm), heads)
+    q = (q_lat @ p.w_uq).reshape(b, s, p.w_uq.shape[1] // qk, qk)
     q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim:]
     cos, sin = rope_angles(positions, m.qk_rope_dim, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos[:, :, None, :], sin[:, :, None, :])
     return q_nope, q_rope
 
 
-def _mla_latent(p: MLAAttention, cfg: LMConfig, x, positions):
-    """The cached latent ``c`` [B,S,R] and the shared rope key [B,S,rope]."""
-    c = rms_norm(x @ p.w_dkv, p.kv_norm)
+def _mla_latent(p: MLAAttention, cfg: LMConfig, x, positions, heads=None, lat=None):
+    """The cached latent ``c`` [B,S,R] and the shared rope key [B,S,rope]
+    (``heads``/``lat`` as in ``_mla_q``, for ``w_dkv``)."""
+    c = rms_norm(gathered_matmul(x, p.w_dkv, lat), p.kv_norm)
     cos, sin = rope_angles(positions, cfg.mla.qk_rope_dim, cfg.rope_theta)
     k_rope = apply_rope((x @ p.w_kr)[:, :, None, :], cos[:, :, None, :],
                         sin[:, :, None, :])[:, :, 0]
-    return c, k_rope
+    return copy_to_model(c, heads), copy_to_model(k_rope, heads)
 
 
-def mla_forward(p: MLAAttention, cfg: LMConfig, x: torch.Tensor, *, positions=None):
-    """Full-sequence MLA. x [B,S,D] -> [B,S,D]."""
+_MLA_HEADS = ("w_uq", "w_uk", "w_uv", "wo")
+_MLA_REST = ("w_dq", "q_norm", "w_dkv", "kv_norm", "w_kr")
+
+
+def mla_forward(p: MLAAttention, cfg: LMConfig, x: torch.Tensor, *, positions=None,
+                mesh=None):
+    """Full-sequence MLA. x [B,S,D] -> [B,S,D]; on ``mesh``'s model axis
+    the rank's heads (see the module docstring)."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
+    axis = _heads_axis(p, _MLA_HEADS, (cfg.n_heads,), mesh)
+    w = weights(p, mesh, _MLA_HEADS, local=axis is not None)
+    vars(w).update(vars(weights(p, mesh, _MLA_REST, local=True)))
+    lat_q = mesh.model if model_split(p, ("w_dq",), mesh) else None
+    lat_kv = mesh.model if model_split(p, ("w_dkv",), mesh) else None
+    h = w.w_uq.shape[1] // (m.qk_nope_dim + m.qk_rope_dim)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q_nope, q_rope = _mla_q(p, cfg, x, positions)
-    c, k_rope = _mla_latent(p, cfg, x, positions)
+    q_nope, q_rope = _mla_q(w, cfg, x, positions, axis, lat_q)
+    c, k_rope = _mla_latent(w, cfg, x, positions, axis, lat_kv)
     scale = _scale(m.qk_nope_dim + m.qk_rope_dim)
     if _use_chunked(s):
-        out = _mla_chunked(p, cfg, q_nope, q_rope, c, k_rope, scale)
+        out = _mla_chunked(w, cfg, q_nope, q_rope, c, k_rope, scale)
     else:
-        k_nope = (c @ p.w_uk).reshape(b, s, h, m.qk_nope_dim)
-        v = (c @ p.w_uv).reshape(b, s, h, m.v_head_dim)
+        k_nope = (c @ w.w_uk).reshape(b, s, h, m.qk_nope_dim)
+        v = (c @ w.w_uv).reshape(b, s, h, m.v_head_dim)
         scores = (
             torch.einsum("bshe,bthe->bhst", q_nope, k_nope)
             + torch.einsum("bshe,bte->bhst", q_rope, k_rope)
@@ -311,7 +365,7 @@ def mla_forward(p: MLAAttention, cfg: LMConfig, x: torch.Tensor, *, positions=No
         scores = scores + torch.where(causal_mask(s, device=x.device), 0.0, _NEG)
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
         out = torch.einsum("bhst,bthe->bshe", probs, v)
-    return out.reshape(b, s, h * m.v_head_dim) @ p.wo
+    return reduce_from_model(out.reshape(b, s, h * m.v_head_dim) @ w.wo, axis)
 
 
 def _mla_chunked(p: MLAAttention, cfg: LMConfig, q_nope, q_rope, c, k_rope, scale: float):

@@ -14,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import reduce_from_model
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     # the variance accumulates in float32, as the reference's
@@ -73,11 +75,26 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: to
     return torch.einsum("...f,fd->...d", F.silu(g) * u, w_down)
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *, z_loss: float = 0.0):
-    """Mean next-token CE in float32; logits [..., V], labels [...] int."""
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *, z_loss: float = 0.0,
+                       axis=None):
+    """Mean next-token CE in float32; logits [..., V], labels [...] int.
+    ``axis`` (a ``PartitionMesh``): the model axis that splits the vocab,
+    ``logits`` the rank's block ``[..., V/T]`` (rank r holds ids ``[r*V/T,
+    (r+1)*V/T)``): the max and the sum of exponentials are all-reduced
+    over it and the target logit comes from the rank that owns it."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    if axis is None or axis.world_size == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    else:
+        v = logits.shape[-1]
+        top = axis.all_reduce(logits.detach().amax(dim=-1), op="max")
+        sumexp = reduce_from_model(torch.exp(logits - top[..., None]).sum(dim=-1), axis)
+        lse = top + torch.log(sumexp)
+        local = labels.long() - axis.rank * v
+        hit = (local >= 0) & (local < v)
+        ll = torch.take_along_dim(logits, torch.where(hit, local, 0)[..., None], dim=-1)[..., 0]
+        ll = reduce_from_model(torch.where(hit, ll, 0.0), axis)
     loss = torch.mean(lse - ll)
     if z_loss:
         loss = loss + z_loss * torch.mean(lse**2)

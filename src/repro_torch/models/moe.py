@@ -31,8 +31,17 @@ densities; ``expert_loads`` gathers every rank's and sums all G groups in
 global order, so the load (and the router bias it moves) equals the
 one-rank load bit for bit.
 
-The reference's ``constrain`` calls pin the expert buffers to mesh axes;
-the port's ranks hold whole replicas, and it drops them.
+On a ``model`` axis of T ranks (the module placed by
+``dist.sharding.place``: the reference's ``constrain`` calls pin the
+expert buffers to it) the experts are split, E/T a rank, and the tokens
+replicated: every model rank routes them all (the same drops, densities
+and loads), runs its own experts on their slots, and all-gathers the
+experts' outputs over the axis; the combine then reads every slot in the
+one-rank order, so it adds the same terms in the same order.  The router
+is FSDP-sharded over ``data`` and ``router_bias`` replicated; shared
+experts are column- then row-parallel, as ``DenseMLP``.  Where E (or the
+shared width) does not split over T, the layer computes with its weights
+gathered whole.
 """
 
 from __future__ import annotations
@@ -45,7 +54,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.dist.sharding import dp_size
+from repro_torch.dist.sharding import (
+    copy_to_model,
+    dp_size,
+    gather_from_model,
+    model_split,
+    reduce_from_model,
+    weights,
+)
 from repro_torch.models.common import init_dense, top_k
 
 
@@ -80,6 +96,8 @@ class MoE(nn.Module):
 
 
 DISPATCH_GROUPS = 32  # target group count; actual = largest divisor of T
+_EXPERTS = ("we_gate", "we_up", "we_down")
+_SHARED = ("w_gate", "w_up", "w_down")
 
 
 def _n_groups(t: int) -> int:
@@ -178,7 +196,11 @@ def moe_ffn_groups(p: MoE, cfg: MoEConfig, x: torch.Tensor, *, mesh=None):
     densities are its G/D groups'."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    r = route(p, cfg, x, mesh)
+    axis = mesh.model if model_split(p, _EXPERTS, mesh) else None
+    w = weights(p, mesh, ("router",) + _EXPERTS, local=axis is not None)
+    if hasattr(p, "router_bias"):
+        w.router_bias = p.router_bias
+    r = route(w, cfg, x, mesh)
     g, t_loc, cap = r.g, r.t_loc, r.cap
     dev = x.device
 
@@ -203,12 +225,20 @@ def moe_ffn_groups(p: MoE, cfg: MoEConfig, x: torch.Tensor, *, mesh=None):
     prob_of_slot.scatter_(1, r.slot, torch.where(r.keep, sp, 0.0))
     prob_of_slot = prob_of_slot[:, :-1]
 
-    xg_pad = torch.cat([x.reshape(g, t_loc, d), x.new_zeros((g, 1, d))], dim=1)
-    xe = _rows(xg_pad, token_of_slot).reshape(g, e, cap, d)
+    # the rank's experts' slots (all of them off a model axis)
+    e_loc = w.we_gate.shape[0]
+    own = token_of_slot
+    if axis is not None:
+        own = own.reshape(g, e, cap)[:, axis.rank * e_loc:(axis.rank + 1) * e_loc]
+        own = own.reshape(g, e_loc * cap)
+    xin = copy_to_model(x, axis)
+    xg_pad = torch.cat([xin.reshape(g, t_loc, d), x.new_zeros((g, 1, d))], dim=1)
+    xe = _rows(xg_pad, own).reshape(g, e_loc, cap, d)
 
-    gate = torch.einsum("gecd,edf->gecf", xe, p.we_gate)
-    up = torch.einsum("gecd,edf->gecf", xe, p.we_up)
-    ye = torch.einsum("gecf,efd->gecd", F.silu(gate) * up, p.we_down).reshape(g, e * cap, d)
+    gate = torch.einsum("gecd,edf->gecf", xe, w.we_gate)
+    up = torch.einsum("gecd,edf->gecf", xe, w.we_up)
+    ye = torch.einsum("gecf,efd->gecd", F.silu(gate) * up, w.we_down)
+    ye = gather_from_model(ye, axis, dim=1).reshape(g, e * cap, d)
     del xe, gate, up
     contrib = ye * prob_of_slot[..., None].to(x.dtype)
 
@@ -224,8 +254,10 @@ def moe_ffn_groups(p: MoE, cfg: MoEConfig, x: torch.Tensor, *, mesh=None):
     y = yg.reshape(t, d)
 
     if cfg.n_shared:
-        s = p.shared
-        y = y + (F.silu(x @ s.w_gate) * (x @ s.w_up)) @ s.w_down
+        s_axis = mesh.model if model_split(p.shared, _SHARED, mesh) else None
+        s = weights(p.shared, mesh, _SHARED, local=s_axis is not None)
+        xs = copy_to_model(x, s_axis)
+        y = y + reduce_from_model((F.silu(xs @ s.w_gate) * (xs @ s.w_up)) @ s.w_down, s_axis)
 
     return y, aux, density.detach()
 

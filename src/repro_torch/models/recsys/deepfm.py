@@ -2,6 +2,10 @@
 an FM interaction branch and a deep MLP branch over shared field
 embeddings; the logits are the sum of both plus the first-order terms.
 
+On a mesh (``mesh=``, the module placed by ``dist.sharding.place``) the
+tables' and first-order terms' vocab rows are split over the ``model``
+axis.
+
 The FM second-order term uses the sum-square identity
   sum_{i<j} <v_i, v_j> = 1/2 * ((sum v_i)^2 - sum v_i^2)
 so the interaction is O(F * D), not O(F^2 * D).
@@ -13,6 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import RecsysConfig
+from repro_torch.dist.sharding import model_split
 from repro_torch.models.common import model_device
 from repro_torch.models.gnn.message_passing import MLP
 from repro_torch.models.recsys.embedding import embedding_bag, init_embedding_tables
@@ -40,19 +45,28 @@ class DeepFM(nn.Module):
         return deepfm_logits(self, ids)
 
 
-def deepfm_logits(model: DeepFM, ids: torch.Tensor) -> torch.Tensor:
-    """ids ``[B, F, H]`` -> logits ``[B]``."""
-    emb = embedding_bag(model.tables, ids)  # [B, F, D]
-    first = embedding_bag(model.first_order, ids)[..., 0].sum(-1)  # [B]
+def _vocab_axis(model: DeepFM, name: str, mesh):
+    return mesh.model if model_split(model, (name,), mesh) else None
+
+
+def deepfm_logits(model: DeepFM, ids: torch.Tensor, mesh=None) -> torch.Tensor:
+    """ids ``[B, F, H]`` -> logits ``[B]``; on ``mesh``'s model axis the
+    tables' vocab rows are split (``recsys_param_specs``) and each bag is
+    summed over the ranks' rows (``embedding_bag``); the MLPs are
+    replicated."""
+    emb = embedding_bag(model.tables, ids, axis=_vocab_axis(model, "tables", mesh))
+    first = embedding_bag(model.first_order, ids,
+                          axis=_vocab_axis(model, "first_order", mesh))[..., 0].sum(-1)
     s = emb.sum(dim=1)  # [B, D]
     fm = 0.5 * (s * s - (emb * emb).sum(dim=1)).sum(-1)  # [B]
     deep = model.mlp(emb.reshape(emb.shape[0], -1))[:, 0]
     return model.bias + first + fm + deep
 
 
-def deepfm_loss(model: DeepFM, ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def deepfm_loss(model: DeepFM, ids: torch.Tensor, labels: torch.Tensor,
+                mesh=None) -> torch.Tensor:
     """Mean binary cross-entropy of the logits, in the stable log1p form."""
-    logits = deepfm_logits(model, ids)
+    logits = deepfm_logits(model, ids, mesh)
     return torch.mean(
         torch.clamp(logits, min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
     )

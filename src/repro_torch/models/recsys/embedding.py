@@ -14,6 +14,7 @@ import math
 
 import torch
 
+from repro_torch.dist.sharding import reduce_from_model
 from repro_torch.kernels.segment_sum import segment_sum
 
 
@@ -35,20 +36,36 @@ def embedding_bag(
     *,
     weights: torch.Tensor | None = None,  # [B, F, H] per-sample weights
     mode: str = "sum",
+    axis=None,
 ) -> torch.Tensor:
     """-> ``[B, F, D]``: each field's rows gathered from its own table, then
-    the bag axis reduced by ``mode`` (``"sum"`` or ``"mean"``)."""
+    the bag axis reduced by ``mode`` (``"sum"`` or ``"mean"``).  ``axis`` (a
+    ``PartitionMesh``): the model axis that splits the tables' vocab rows,
+    ``tables`` the rank's block ``[F, V/T, D]``: each rank gathers the ids
+    it owns (the others read as zero rows), reduces its bags, and the
+    partial bags are summed over the axis; the gradient reaches only the
+    rank's own rows."""
     f, v, d = tables.shape
+    ids = ids.to(torch.int64)
+    hit = None
+    if axis is not None and axis.world_size > 1:
+        ids = ids - axis.rank * v
+        hit = (ids >= 0) & (ids < v)
+        ids = torch.where(hit, ids, 0)
     offsets = torch.arange(f, device=ids.device, dtype=torch.int64)[None, :, None] * v
-    flat = (ids.to(torch.int64) + offsets).reshape(-1)
+    flat = (ids + offsets).reshape(-1)
     gathered = tables.reshape(f * v, d).index_select(0, flat).reshape(*ids.shape, d)
+    if hit is not None:
+        gathered = torch.where(hit[..., None], gathered, 0)
     if weights is not None:
         gathered = gathered * weights[..., None]
     if mode == "sum":
-        return gathered.sum(dim=2)
-    if mode == "mean":
-        return gathered.mean(dim=2)
-    raise ValueError(mode)
+        out = gathered.sum(dim=2)
+    elif mode == "mean":
+        out = gathered.mean(dim=2)
+    else:
+        raise ValueError(mode)
+    return out if hit is None else reduce_from_model(out, axis)
 
 
 def embedding_bag_segment(

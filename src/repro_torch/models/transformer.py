@@ -16,11 +16,24 @@ plain paths otherwise (the kernel has no backward); ``"torch"`` the plain
 paths anywhere.  Under ``cfg.remat``, where a gradient is asked for, each
 trunk layer runs under ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint`` of the scanned layer body): the backward keeps only the
-layers' inputs and recomputes each layer.  The reference's ``constrain``
-calls (mesh placement) are dropped: the port's data-parallel ranks hold
-whole replicas.  ``mesh=`` (the loss and the forward) tells the MoE layers
-that the tokens are one data rank's share of the global batch
-(``models.moe``); None, the default, is one rank.
+layers' inputs and recomputes each layer.
+
+``mesh=`` (the loss and the forward; ``launch.mesh.make_mesh``) runs the
+model as ``dist.sharding.place`` laid it out, the behaviour of the
+reference's rule tables and ``constrain`` calls: the tokens are one data
+rank's share of the global batch (the MoE layers' dispatch groups are the
+global batch's, ``models.moe``), replicated over the ``model`` axis, and
+so is the residual stream.  On the model axis, attention runs the rank's
+heads (``models.attention``), ``DenseMLP`` is column-parallel
+(``w_gate``/``w_up``) then row-parallel (``w_down``) with one sum over the
+axis, the MoE layers run the rank's experts, ``embed`` is a vocab-parallel
+lookup (a masked gather of the rank's rows, summed over the axis), the
+head gives the rank's vocab block of the logits, and
+``cross_entropy_loss`` reads them there (the max and the sum of
+exponentials all-reduced, the target logit from the rank that owns it).
+FSDP shards are gathered over the data axis where a layer reads them, and
+their gradients reduce-scattered back.  A layer whose spec ``fit_specs``
+left whole takes the replicated path.  None, the default, is one rank.
 """
 
 from __future__ import annotations
@@ -30,6 +43,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.dist.sharding import (
+    copy_to_model,
+    gather_from_model,
+    gathered_matmul,
+    model_split,
+    reduce_from_model,
+    weights,
+)
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (
     cross_entropy_loss,
@@ -121,19 +142,49 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+_MLP = ("w_gate", "w_up", "w_down")
+
+
+def mlp_forward(m: DenseMLP, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """SwiGLU; on ``mesh``'s model axis column- then row-parallel, the
+    partial sums summed over the axis."""
+    axis = mesh.model if model_split(m, _MLP, mesh) else None
+    w = weights(m, mesh, _MLP, local=axis is not None)
+    return reduce_from_model(swiglu(copy_to_model(x, axis), w.w_gate, w.w_up, w.w_down),
+                             axis)
+
+
 def _layer_fwd(cfg: LMConfig, layer: Layer, x, *, is_moe: bool, backend=None, mesh=None):
     hn = rms_norm(x, layer.attn_norm)
     if cfg.mla:
-        h = x + attn.mla_forward(layer.attn, cfg, hn)
+        h = x + attn.mla_forward(layer.attn, cfg, hn, mesh=mesh)
     else:
-        h = x + attn.gqa_forward(layer.attn, cfg, hn, backend=backend)
+        h = x + attn.gqa_forward(layer.attn, cfg, hn, backend=backend, mesh=mesh)
     hn = rms_norm(h, layer.ffn_norm)
     if is_moe:
         b, s, d = hn.shape
         y, aux, density = moe_ffn_groups(layer.moe, cfg.moe, hn.reshape(b * s, d), mesh=mesh)
         return h + y.reshape(b, s, d), (aux, density)
-    m = layer.mlp
-    return h + swiglu(hn, m.w_gate, m.w_up, m.w_down), (None, None)
+    return h + mlp_forward(layer.mlp, hn, mesh), (None, None)
+
+
+def vocab_axis(model: Transformer, mesh):
+    """``mesh``'s model axis where it splits the vocab (``embed``'s rows),
+    else None."""
+    return mesh.model if model_split(model, ("embed",), mesh) else None
+
+
+def embed_tokens(model: Transformer, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """tokens -> their embeddings; on a model axis that splits the vocab, a
+    masked gather of the rank's rows summed over the axis."""
+    axis = vocab_axis(model, mesh)
+    table = weights(model, mesh, ("embed",), local=axis is not None).embed
+    if axis is None:
+        return table[tokens]
+    local = tokens.long() - axis.rank * table.shape[0]
+    hit = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(hit, local, 0)]
+    return reduce_from_model(torch.where(hit[..., None], rows, 0), axis)
 
 
 def lm_hidden(model: Transformer, tokens: torch.Tensor, *, backend: str | None = None,
@@ -143,7 +194,7 @@ def lm_hidden(model: Transformer, tokens: torch.Tensor, *, backend: str | None =
     aux its groups' mean, and the loads the global batch's (one all-gather
     for every layer)."""
     cfg = model.cfg
-    x = model.embed[tokens]
+    x = embed_tokens(model, tokens, mesh)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     loads = None
     remat = cfg.remat and torch.is_grad_enabled()
@@ -164,10 +215,21 @@ def lm_hidden(model: Transformer, tokens: torch.Tensor, *, backend: str | None =
     return x, aux, loads
 
 
-def _logits(model: Transformer, h: torch.Tensor) -> torch.Tensor:
+def _logits(model: Transformer, h: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The logits of hidden states ``h``: on a model axis that splits the
+    vocab, the rank's block (``gather_logits`` puts them together)."""
     h = rms_norm(h, model.final_norm)
-    head = model.embed.T if model.cfg.tie_embeddings else model.head
-    return h @ head
+    axis = vocab_axis(model, mesh)
+    if model.cfg.tie_embeddings:
+        head = weights(model, mesh, ("embed",), local=axis is not None).embed.T
+    else:
+        head = weights(model, mesh, ("head",), local=axis is not None).head
+    return copy_to_model(h, axis) @ head
+
+
+def gather_logits(model: Transformer, logits: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``_logits``' blocks laid end to end: the whole vocab on every rank."""
+    return gather_from_model(logits, vocab_axis(model, mesh), dim=-1)
 
 
 def lm_forward(model: Transformer, tokens: torch.Tensor, *, backend: str | None = None):
@@ -185,7 +247,8 @@ def lm_loss_and_stats(model: Transformer, tokens: torch.Tensor, *,
     cfg = model.cfg
     inp, labels = tokens[:, :-1], tokens[:, 1:]
     h, aux, loads = lm_hidden(model, inp, backend=backend, mesh=mesh)
-    loss = cross_entropy_loss(_logits(model, h), labels)
+    vocab = vocab_axis(model, mesh)
+    loss = cross_entropy_loss(_logits(model, h, mesh), labels, axis=vocab)
     if cfg.moe and not cfg.moe.aux_free_bias:
         loss = loss + cfg.moe.router_aux_weight * aux
     if cfg.mtp_depth:
@@ -193,11 +256,13 @@ def lm_loss_and_stats(model: Transformer, tokens: torch.Tensor, *,
         # through one more block; position 0 of the shifted stream is
         # padding, masked out of the loss, so the block runs at length S
         mtp = model.mtp
-        emb_next = model.embed[torch.roll(inp, -1, dims=1)]
-        z = torch.cat([h, emb_next], dim=-1) @ mtp.proj
-        z, _ = _layer_fwd(cfg, mtp.layer, z, is_moe=False, backend=backend)
-        mtp_logits = _logits(model, rms_norm(z, mtp.norm))
-        loss = loss + 0.3 * cross_entropy_loss(mtp_logits[:, :-1], labels[:, 1:])
+        emb_next = embed_tokens(model, torch.roll(inp, -1, dims=1), mesh)
+        proj = weights(mtp, mesh, ("proj",), local=True).proj
+        z = gathered_matmul(torch.cat([h, emb_next], dim=-1), proj,
+                            mesh.model if model_split(mtp, ("proj",), mesh) else None)
+        z, _ = _layer_fwd(cfg, mtp.layer, z, is_moe=False, backend=backend, mesh=mesh)
+        mtp_logits = _logits(model, rms_norm(z, mtp.norm), mesh)
+        loss = loss + 0.3 * cross_entropy_loss(mtp_logits[:, :-1], labels[:, 1:], axis=vocab)
     return loss, {"moe_loads": loads}
 
 

@@ -14,6 +14,13 @@ The state is ``{"mu": {name: tensor}, "nu": {name: tensor}, "count":
 int32 scalar}`` keyed by the module's parameter names, every parameter
 included: one that gets no gradient (MoE's ``router_bias``) takes the
 reference's zero-gradient update, which moves nothing.
+
+On a mesh (a module ``dist.sharding.place`` sharded) the moments take the
+shape of the rank's shard, the global norm sums each leaf's local squares
+and all-reduces them over the axes that split that leaf
+(``Placement.global_norm``: a replicated leaf counts once), so the clip
+reads the whole gradient's norm, and weight decay follows the parameter's
+``ndim``, which a shard keeps.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import dataclasses
 
 import torch
 from torch import nn
+
+from repro_torch.dist.sharding import placement_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +80,8 @@ def adamw_update(model: nn.Module, grads: dict, state: dict, cfg: AdamWConfig) -
     if set(grads) - set(params):
         raise KeyError(f"gradients for no parameter: {sorted(set(grads) - set(params))}")
     count = state["count"] + 1
-    gnorm = global_norm(grads.values())
+    placed = placement_of(model)
+    gnorm = global_norm(grads.values()) if placed is None else placed.global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     cf = count.to(torch.float32)
     bc1 = 1 - cfg.b1 ** cf

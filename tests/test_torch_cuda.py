@@ -38,8 +38,13 @@ the straight run bit for bit; an LM train step launches no flash kernel.
 Data-parallel training: 2 ranks (gloo on one card, or NCCL on two) of a
 reduced LM's train step in float32 against one rank on the card, within
 ``tests/test_torch_dp.py``'s bound on the CPU (loss and gradient norm
-``1e-6``, float32 reassociation), every rank's state equal bit for bit and
-DeepSeek-V3's router biases equal to one rank's.
+``1e-6``, float32 reassociation), every rank's state (gathered whole: the
+LM's is FSDP-sharded) equal bit for bit and DeepSeek-V3's router biases
+equal to one rank's.  The model axis: a reduced LM's float32 prefill on a
+``(1, 2)`` mesh, each rank on its own heads, launches the flash kernel
+once a layer on every rank; its next tokens equal one rank's and its
+last-position logits lie within ``tests/test_torch_tp.py``'s ``1e-5`` of
+their rms.
 """
 
 import dataclasses
@@ -1047,3 +1052,61 @@ def test_nccl_data_parallel_on_two_cards_matches_one_rank(cuda_device, arch):
     ranks = run_ranks(_dp_card_rank, 2, device="cuda", timeout=600, args=(arch,))
     assert ranks.backend == "nccl" and ranks.devices == ["cuda:0", "cuda:1"]
     _assert_dp_equals_one_rank(ranks, arch)
+
+
+# -- the model axis on the card ----------------------------------------------------
+
+#: the (1, 2) prefill's logits against one rank's, of their rms (tests/test_torch_tp.py)
+TP_PREFILL_SHARE = 1e-5
+
+
+def _tp_prefill_card(arch: str, mesh=None) -> dict:
+    """A reduced LM's prefill in float32 on the card (on ``mesh``'s model
+    axis, the rank's heads): the flash launches around the bundle's step,
+    its next tokens and the last position's logits, whole."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import _logits, gather_logits, lm_hidden
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tb = steps.build_bundle(arch, "prefill_32k", reduced=True, device="cuda", mesh=mesh)
+    model = tb.init_state_fn(0)["params"].to(torch.float32)
+    batch = make_batch(tb.abstract_inputs, seed=0, step=0, bounds=tb.input_bounds,
+                       device="cuda")
+    before = flash_fwd.launches
+    out = tb.step_fn({"params": model}, batch)
+    torch.cuda.synchronize()
+    launches = flash_fwd.launches - before
+    with torch.inference_mode():
+        h, _, _ = lm_hidden(model, batch["tokens"], mesh=mesh)
+        logits = gather_logits(model, _logits(model, h[:, -1:], mesh), mesh)[:, -1]
+    return {"launches": launches, "next_token": out["next_token"].cpu(),
+            "logits": logits.float().cpu(), "n_layers": model.cfg.n_layers,
+            "heads": model.dense_layers[0].attn.wq.shape[1] if hasattr(model, "dense_layers")
+            else model.moe_layers[0].attn.wq.shape[1]}
+
+
+def _tp_prefill_card_rank(arch: str) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+
+    return _tp_prefill_card(arch, make_mesh(data=1, model=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mixtral-8x22b"])
+def test_model_axis_prefill_runs_the_flash_kernel_on_every_rank(cuda_device, arch):
+    """Two ranks (gloo on one card, or NCCL on two) as a ``(1, 2)`` mesh:
+    each rank holds half the heads and launches the flash kernel once a
+    layer on them; the next tokens equal one rank's, the logits within
+    ``TP_PREFILL_SHARE`` of their rms."""
+    from repro_torch.dist import run_ranks
+
+    ranks = run_ranks(_tp_prefill_card_rank, 2, device="cuda", timeout=600, args=(arch,))
+    one = _tp_prefill_card(arch)
+    assert one["launches"] == one["n_layers"]
+    bound = TP_PREFILL_SHARE * float(one["logits"].square().mean().sqrt())
+    for r in ranks:
+        assert r["launches"] == r["n_layers"] == one["n_layers"]
+        assert 2 * r["heads"] == one["heads"]
+        assert torch.equal(r["next_token"], one["next_token"])
+        assert float((r["logits"] - one["logits"]).abs().max()) <= bound

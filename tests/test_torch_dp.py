@@ -2,14 +2,17 @@
 ``repro_torch.launch.steps`` on the data axis of ``launch.mesh``'s host
 mesh, ``dist.sharding.all_reduce_grads``, ``data.synthetic.shard_batch``,
 the MoE layers' global dispatch groups and loads, and ``launch.train`` on
-ranks, with checkpoints that restore across rank counts.
+ranks, with checkpoints that restore across rank counts.  On the data axis
+the LM states are FSDP-sharded (``dist.sharding.place``, as the
+reference's rule tables say) and DeepFM's replicated.
 
 Ranks are gloo processes on the CPU (``dist.run_ranks``): one launch for
 D = 2 runs every case, one for D = 4 runs Mixtral and DeepFM.  Each case
 takes 3 steps from the JAX package's state (``convert.train_state_from_numpy``,
 the LMs cast to float32) on the JAX package's batches, the global batch
-on every rank.  The rank targets import nothing of JAX; the JAX side runs
-here, in the test process.
+on every rank, each rank's state placed by ``convert``'s ``mesh=``.  The
+rank targets import nothing of JAX; the JAX side runs here, in the test
+process.
 
 Bounds:
 
@@ -22,18 +25,22 @@ Bounds:
     ``DP_BOUND``, loss ``1e-6``, gnorm ``1e-6``, parameters ``1e-3`` of
     their update (measured at D = 2 and 4 over every case: at most 1.2e-7,
     1.8e-7 and 2.8e-5).  Two controls must fail it: the step without the
-    gradient mean (each rank its own shard's gradients; measured loss
-    2.7e-4 and more, gnorm 0.29 and more), and the MoE dispatch groups
+    gradient mean (each rank its own rows' gradients where the data axis
+    leaves a leaf whole, its FSDP shards' gradients the ranks' sum, not
+    their mean; measured loss 2.7e-4 and more, gnorm 0.29 and more), and the MoE dispatch groups
     taken from the rank's own token count (Mixtral: loss 2.8e-4 at D = 2
     through its aux loss; a DeepSeek-V3 case with drops, 4 dispatch groups
     and ``capacity_factor`` 0.5, whose capacity then differs: loss 4.4e-3.
     At the reduced config no group holds more than 4 tokens, so its
     capacity of 4 drops nothing on either count, and DeepSeek-V3's loads
     come out the same);
-  * exact: every rank's state after 3 steps, bit for bit; DeepSeek-V3's
-    router biases equal to the one-rank run's; the collectives of each
-    step, calls and bytes, equal to the count the buckets give, plus the
-    loss's sum, plus one loads gather for an MoE model.
+  * exact: every rank's state after 3 steps, gathered whole
+    (``launch.train.state_tree``), bit for bit; DeepSeek-V3's router biases
+    equal to the one-rank run's; the collectives of each step, calls and
+    bytes: for DeepFM, the count the buckets give plus the loss's sum; for
+    an LM, ``test_torch_tp.derived_collectives`` (the FSDP gathers and
+    reduce-scatters, one bucket of the leaves the data axis leaves whole,
+    the loss, the global norm, and one loads gather for an MoE model).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import contextlib
 import dataclasses
 import math
 import shutil
+import types
 
 import numpy as np
 import pytest
@@ -56,10 +64,16 @@ from repro_torch.configs.registry import reduced_config
 from repro_torch.convert import train_state_from_numpy
 from repro_torch.data.synthetic import make_batch, shard_batch
 from repro_torch.dist import PartitionMesh, run_ranks
-from repro_torch.dist.sharding import all_reduce_grads, dp_axes, dp_size
+from repro_torch.dist.sharding import (
+    all_reduce_grads,
+    dp_axes,
+    dp_size,
+    fit_specs,
+    lm_param_specs,
+)
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.mesh import HostMesh, make_host_mesh
-from repro_torch.launch.train import restore_state, state_digests, train
+from repro_torch.launch.train import restore_state, state_digests, state_tree, train
 
 pytestmark = pytest.mark.mesh
 
@@ -114,8 +128,9 @@ def _patched(obj, attr: str, value):
         setattr(obj, attr, old)
 
 
-def _unsummed(grads, params, mesh):
-    """The control: each rank keeps its own shard's gradients."""
+def _unsummed(grads, params, mesh, **kw):
+    """The control: each rank keeps its own gradients (its FSDP shards' the
+    ranks' sum), none divided by the rank count."""
     return {n: torch.zeros_like(p) if grads.get(n) is None else grads[n]
             for n, p in params.items()}
 
@@ -148,7 +163,7 @@ def _run_case(name: str, variant: str, np_state, batches, mesh=None) -> dict:
     with _variant(name, variant):
         tb = steps.build_bundle(arch, shape, reduced=True, config=cfg, device="cpu",
                                 mesh=mesh)
-        state = train_state_from_numpy(family, np_state, cfg, device="cpu")
+        state = train_state_from_numpy(family, np_state, cfg, device="cpu", mesh=mesh)
         losses, gnorms, per_step = [], [], []
         for b in batches:
             before = None if mesh is None else mesh.data.stats.snapshot()
@@ -157,11 +172,14 @@ def _run_case(name: str, variant: str, np_state, batches, mesh=None) -> dict:
             gnorms.append(float(m["gnorm"]))
             if mesh is not None:
                 per_step.append(_snapshot_delta(before, mesh.data.stats.snapshot()))
-    params = {n: p.detach().clone() for n, p in state["params"].named_parameters()}
+    params = {n: t.detach().clone() for n, t in state_tree(state)["params"].items()}
+    shapes = {n: tuple(p.shape) for n, p in state["params"].named_parameters()}
+    placed = getattr(state["params"], "placement", None)
     lead = mesh is None or mesh.rank == 0
     return {"losses": losses, "gnorms": gnorms, "per_step": per_step,
             "digests": state_digests(state), "count": int(state["opt"]["count"]),
-            "params": params if lead else None,
+            "params": params if lead else None, "shapes": shapes,
+            "specs": None if placed is None else placed.specs,
             "biases": {n: p for n, p in params.items() if n.endswith("router_bias")}}
 
 
@@ -297,8 +315,9 @@ def test_ranks_match_jax_and_the_one_rank_step(runs, name, d):
 
 @pytest.mark.parametrize("name, d", _d_cases(), ids=[f"{n}-D{d}" for n, d in _d_cases()])
 def test_ranks_stay_identical_and_the_controls_fail(runs, name, d):
-    """Every rank's state after 3 steps equals rank 0's bit for bit; each
-    control of the case fails ``DP_BOUND`` against the one-rank step."""
+    """Every rank's state after 3 steps, gathered whole, equals rank 0's bit
+    for bit; each control of the case fails ``DP_BOUND`` against the
+    one-rank step."""
     out, launches = runs
     ranks = launches[d]
     for variant in CASES[name][5]:
@@ -326,23 +345,30 @@ def test_router_biases_equal_the_one_rank_run(runs):
 
 @pytest.mark.parametrize("name, d", _d_cases(), ids=[f"{n}-D{d}" for n, d in _d_cases()])
 def test_collectives_per_step_equal_the_derived_count(runs, name, d):
-    """Each step's calls and bytes: one all-reduce a bucket (the gradients
-    of one dtype end to end, cut every ``BUCKET_BYTES``), one for the loss,
-    and for an MoE model one all-gather of every layer's group densities."""
+    """Each step's calls and bytes.  DeepFM (replicated): one all-reduce a
+    bucket (the gradients of one dtype end to end, cut every
+    ``BUCKET_BYTES``) and one for the loss.  An LM (FSDP over the data
+    axis): the count derived from its specs (``derived_collectives``)."""
+    from test_torch_tp import derived_collectives  # the parent's path only: ranks load this file
+
     out, launches = runs
     cfg = _config(name)
-    grads = out[name]["grad_bytes"]
-    buckets = sum(math.ceil(b / BUCKET_BYTES) for b in grads.values())
-    want_calls = {"all_reduce": buckets + 1}
-    want_bytes = {"all_reduce": sum(grads.values()) + 4}
-    if _family(name) == "lm" and cfg.moe:
+    if _family(name) == "lm":
+        got = launches[d][0][name, MAIN]
         with _variant(name, MAIN):  # the case's DISPATCH_GROUPS
-            groups = moe.dispatch_groups(4 * 32 // d, _fake_mesh(d, 0))
-        want_calls["all_gather"] = 1
-        want_bytes["all_gather"] = cfg.n_moe_layers * groups * cfg.moe.n_experts * 4
+            groups = moe.dispatch_groups(4 * 32) if cfg.moe else 0
+        want = derived_collectives(cfg, "lm", got["specs"], got["shapes"], d, 1,
+                                   groups=groups)
+        want_calls, want_bytes = want["calls"]["data"], want["bytes"]["data"]
+    else:
+        grads = out[name]["grad_bytes"]
+        buckets = sum(math.ceil(b / BUCKET_BYTES) for b in grads.values())
+        want_calls = {"all_reduce": buckets + 1}
+        want_bytes = {"all_reduce": sum(grads.values()) + 4}
     for r in launches[d]:
         for step in r[name, MAIN]["per_step"]:
-            assert step["calls"] == want_calls and step["bytes"] == want_bytes
+            assert step["calls"] == want_calls
+            assert all(step["bytes"][op] == b for op, b in want_bytes.items())
 
 
 @pytest.mark.parametrize("d", [2, 4])
@@ -436,7 +462,7 @@ def test_dispatch_groups_split_the_global_groups():
 
 @pytest.mark.parametrize("arch, shape, what", [
     ("pna", "full_graph_sm", "item 3"), ("meshgraphnet", "minibatch_lg", "item 3"),
-    ("tinyllama-1.1b", "prefill_32k", "item 2"), ("deepfm", "serve_bulk", "item 2"),
+    ("tinyllama-1.1b", "decode_32k", "item 2"), ("deepfm", "serve_bulk", "item 2"),
 ])
 def test_bundles_not_on_the_data_axis_raise_on_ranks(arch, shape, what):
     with pytest.raises(NotImplementedError, match=what):
@@ -505,7 +531,20 @@ def test_trainer_on_two_ranks_restarts_bit_for_bit_and_onto_one(tmp_path):
     ref = train(*TRAIN, ckpt_dir=straight, **kw)
     assert ref["ranks"] == 2 and ref["backend"] == "gloo" and ref["ranks_identical"]
     assert len(ref["losses"]) == len(ref["gnorms"]) == 6 and ref["resumed_from"] is None
-    assert ref["stats"]["calls"]["all_gather"] == 6  # one loads gather a step
+    # each step's FSDP gathers and its loads gather, then three checkpoints'
+    # whole-state gathers (every data-split leaf, and both its moments)
+    from test_torch_tp import derived_collectives
+
+    model = steps.build_bundle(*TRAIN, reduced=True, device="cpu").init_state_fn(0)["params"]
+    standin = types.SimpleNamespace(axis_names=("data", "model"), devices=np.empty((2, 1)))
+    specs = fit_specs(lm_param_specs(model), model, standin)
+    local = {n: tuple(s // (2 if ax == "data" else 1) for s, ax in zip(p.shape, specs[n]))
+             for n, p in model.named_parameters()}
+    per_step = derived_collectives(model.cfg, "lm", specs, local, 2, 1,
+                                   groups=moe.dispatch_groups(4 * 32), elt=2)
+    n_split = sum("data" in spec for spec in specs.values())
+    assert ref["stats"]["calls"]["all_gather"] == (
+        6 * per_step["calls"]["data"]["all_gather"] + 3 * 3 * n_split)
     with pytest.raises(RuntimeError, match="^injected crash at step 4$"):
         train(*TRAIN, ckpt_dir=crashy, crash_at=4, **kw)
     assert latest_step(crashy) == 3
