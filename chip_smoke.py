@@ -91,9 +91,12 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 one-rank step 1 (a control, rank 0's gradient norm before
                 the mean, must fail); DeepFM's train_batch at its
                 published config through ``train()``, 3 steps, each held the
-                same way to the train phase's; every rank's state, gathered
-                whole, equal bit for bit after the steps (per-tensor
-                digests); step wall,
+                same way to the train phase's, every rank's state equal bit
+                for bit after the steps (per-tensor digests: DeepFM's state
+                gathered whole; TinyLlama's FSDP shards are not gathered,
+                11 GB through gloo, but each rank's copy of the leaves the
+                data axis leaves whole, the norms and their moments, and
+                the step count); step wall,
                 collective calls, bytes and seconds, their share, peak
                 device bytes per rank.  Then the trainer's restart across
                 rank counts at DeepSeek-V3's reduced config: 4 steps
@@ -121,7 +124,34 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 ``train(model=2)``, its tables' vocab rows split, every step
                 held to the one-rank step; a ``(1, 2)`` checkpoint of
                 DeepSeek-V3's reduced config restored here on one rank bit
-                for bit.
+                for bit.  The TinyLlama train step's and each prefill's
+                collectives, per axis and op, calls and bytes, must equal
+                ``launch.dryrun.derived_collectives``'s count.
+     serve_mesh -- the same launch's ranks serving (``launch.steps``'
+                decode, serve and retrieval bundles on a mesh):
+                TinyLlama's decode_32k on ``(1, 2)`` at its published
+                widths as the lm phase runs it (8 sequences, a 32,768-slot
+                cache of seeded entries split in time, 16,384 slots a rank,
+                each rank on its 16 query and 2 KV heads), 17 steps
+                teacher-forced with the lm phase's tokens, each step's
+                logits within 1.0 of the rms of the lm phase's one-rank
+                logits at the same positions (about 4x the largest
+                distance measured, bfloat16 rounding on both paths), then
+                the first 4 steps with the model and cache cast to float32
+                within 1e-4 of the one-rank float32 logits (each bound's
+                control, the last step again with the split-KV partials
+                left unmerged, must fail it); DeepFM's serve_bulk (262,144 requests) on ``(2, 1)``
+                and ``(1, 2)`` and retrieval_cand on ``(2, 1)`` (500,000
+                candidates a rank, top 100) against the recsys phase's
+                one-rank scores (1e-5) and top ids (equal); the dry run's
+                checking half, ``launch.dryrun.cell_on_rank`` on
+                TinyLlama's prefill_32k cell at its reduced config on the
+                same ``(1, 2)`` mesh, each rank's flash launches counted
+                from 0 (one a layer).  Every step's collectives equal the
+                derived count.  Then the ``dryrun``
+                line: ``launch.dryrun`` reckons every cell at both
+                production meshes on the host (no card work), each cell's
+                state bytes a rank beside this card's memory (not a gate).
   8. graph   -- ``rmat_graph(22, 8, seed=42)`` (about 4.2 M vertices and
                 68 M directed edges, SNAP soc-LiveJournal1's size) split by
                 ``bfs_grow_partition(..., 8, seed=1)``; host build times.
@@ -220,13 +250,13 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 the kernel launched on every rank that holds edges, gloo
                 taking CUDA tensors in all four collectives.  Then, in the
                 same D = 8 launch, ``ElasticBSPExecutor`` with
-                ``relayout=True`` (one superstep a window) under the elastic
-                phase's FFD plan: its report equal to the dense executor's
-                apart from the physical ledger, shards moved between ranks,
-                re-layouts made, residency on the plan; cut to scale 17
-                only where its per-rank rebuilds are projected past the
-                time limit.  Also the relax kernel at the hub rank's D = 8
-                planes.
+                ``relayout=True`` (one superstep a window) under the FFD
+                plan of a scale-17 R-MAT graph shared beside LIVJ (a depth
+                cut: at LIVJ's size its re-layouts took 33-41 s): its report
+                equal to the dense executor's on that graph apart from the
+                physical ledger, shards moved between ranks, re-layouts
+                made, residency on the plan.  Also the relax kernel at the
+                hub rank's D = 8 planes.
   20. analysis -- the port's analysis layer (``repro_torch.analysis``) on
                 the card: every program on both backends over the small
                 audit graph (``rmat_graph(6, 4)``, 5 parts), each window's
@@ -291,6 +321,7 @@ from repro_torch.core.repartition import (  # noqa: E402
 )
 from repro_torch.core.placement import device_of_vm  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.configs.registry import reduced_config  # noqa: E402
 from repro_torch.configs.base import GRAPH_SHAPES  # noqa: E402
 from repro_torch.dist import (  # noqa: E402
     load_shared_graph,
@@ -356,11 +387,14 @@ from repro_torch.data.synthetic import InputSpec, make_batch  # noqa: E402
 from repro_torch.launch.serve import serve_batch  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch.steps import build_bundle  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh, make_mesh  # noqa: E402
+from repro_torch.dist.sharding import shard_of  # noqa: E402
 from repro_torch.launch.train import (  # noqa: E402
     InjectedCrash,
     state_digests,
     state_tree,
+    tensor_digest,
     train,
 )
 from repro_torch.models import attention as lm_attention  # noqa: E402
@@ -448,9 +482,10 @@ MESH_LAUNCH_TIMEOUT_S = 900.0
 MESH_MIRROR_DEGREE = 1 << 16
 #: the executor run on the mesh (relayout=True, one superstep a window, so
 #: the layout can follow every planned row) rebuilds every rank's own block
-#: for each planned map; it is cut to this scale only when that is projected
-#: past MESH_EXECUTOR_MAX_S
-MESH_EXECUTOR_CUT_SCALE, MESH_EXECUTOR_MAX_S = 17, 120.0
+#: for each planned map: it runs on a graph of this scale (the full LIVJ/8P
+#: size took 33-41 s of re-layouts; the cut pays for the serve_mesh phase),
+#: shared beside the full graph and run in the same D = 8 launch
+MESH_EXECUTOR_SCALE = 17
 #: the swap run trades ranks 0 and 1's partitions after this many supersteps
 MESH_SWAP_AFTER = 2
 #: the analysis phase: its mesh audit's ranks (sharing the card over gloo)
@@ -620,6 +655,39 @@ TRAIN_DP_TIMEOUT_S = 900.0
 MODEL_AXIS_RANKS = 2
 MODEL_AXIS_LM_RTOL = {"loss": 1e-4, "gnorm": 2.5e-3}
 PREFILL_REFS: dict = {}
+#: the serve_mesh phase (in train_dp's launch, after model_axis): the
+#: serving bundles on the same 2 ranks.  TinyLlama's decode_32k on the (1,
+#: 2) mesh as the lm phase runs it (LM_DECODE_BATCH sequences against a
+#: LM_DECODE_CACHE-slot cache of seeded entries, split-KV: half the slots a
+#: rank), teacher-forced with the lm phase's tokens: each step's logits
+#: within DECODE_MESH_BF16_SHARE of the rms of the lm phase's one-rank
+#: logits, and the first DECODE_F32_STEPS steps, the model and the same
+#: cache cast to float32, within DECODE_MESH_F32_SHARE of the one-rank
+#: float32 logits' (DECODE_REFS: arch -> (config, tokens, first position,
+#: cache slots, bfloat16 logits, float32 logits)); each with its control
+#: (the last step again with the partials left unmerged: each rank attends
+#: its own slots alone) outside it.  Both bounds are about 4x the largest
+#: distance measured on an H100 (tools/decode_probe.py gap, 8 steps): in
+#: bfloat16 0.2502, which is rounding, not a defect: the one-rank bfloat16
+#: logits lie as far from the float32 ones (0.200-0.238) as the split ones
+#: do (0.202-0.277), and the residual stream's distance from float32 grows
+#: with depth alike on both paths, 0.0055-0.0058 of its rms after one layer
+#: to 0.044-0.045 after 22; in float32 the split path reads 1.8e-5-2.1e-5.
+#: DeepFM's
+#: serve_bulk on (2, 1) and (1, 2) and retrieval_cand on (2, 1) (half the
+#: candidates a rank) against the
+#: recsys phase's one-rank outputs (RECSYS_REFS): scores within
+#: RECSYS_SCORE_TOL, the top ids equal.  Every case's collectives, each step,
+#: equal ``launch.dryrun.derived_collectives``'s count
+DECODE_MESH_BF16_SHARE, DECODE_MESH_F32_SHARE, DECODE_F32_STEPS = 1.0, 1e-4, 4
+DECODE_REFS: dict = {}
+RECSYS_REFS: dict = {}
+#: the dry run's checking half on the card, in serve_mesh:
+#: ``launch.dryrun.cell_on_rank`` on this (architecture, shape) cell at its
+#: reduced config (2 layers, 4 sequences of 32 tokens) on the (1, 2) mesh;
+#: every rank's collectives must equal the derived count and, on a card,
+#: its flash launches (counted from 0 around the cell) one a layer
+DRYRUN_CELL = ("tinyllama-1.1b", "prefill_32k")
 #: the template instantiations the main path runs, and the program each
 #: serves there: (variant, reduce, dtype, program name)
 MAIN_VARIANTS = (
@@ -1375,26 +1443,41 @@ def _lm_float32_checks(cfg, tokens, device, seed: int) -> tuple[dict, dict]:
                     "control_one_slot_late": control}
 
 
-def _lm_decode(arch: str, model, device, seed: int) -> dict:
-    """decode_32k's step at LM_DECODE_BATCH sequences: LM_DECODE_TOKENS
-    greedy tokens against a LM_DECODE_CACHE-slot cache whose earlier slots
-    hold seeded keys and values, timed between CUDA events."""
-    cfg = model.cfg
-    bundle = build_bundle(arch, "decode_32k", config=cfg, device=device)
+def _decode_cache(cfg, dtype, device, seed: int, batch: int | None = None,
+                  cache_len: int | None = None):
+    """decode_32k's cache at ``batch`` sequences and ``cache_len`` slots (by
+    default LM_DECODE_BATCH and LM_DECODE_CACHE), every slot holding seeded
+    keys and values, and the generator that drew them."""
     gen = _gen(device, seed + 4)
-    cache = init_lm_cache(cfg, LM_DECODE_BATCH, LM_DECODE_CACHE, model.embed.dtype, device)
+    cache = init_lm_cache(cfg, batch or LM_DECODE_BATCH, cache_len or LM_DECODE_CACHE, dtype,
+                          device)
     for leaves in cache.values():
         for t in leaves.values():
             t.normal_(generator=gen)
+    return cache, gen
+
+
+def _lm_decode(arch: str, model, device, seed: int) -> dict:
+    """decode_32k's step at LM_DECODE_BATCH sequences: LM_DECODE_TOKENS
+    greedy tokens against a LM_DECODE_CACHE-slot cache whose earlier slots
+    hold seeded keys and values, timed between CUDA events.  Then the
+    serve_mesh phase's reference (DECODE_REFS): the same positions from the
+    same seeded cache, teacher-forced with this run's tokens, each step's
+    last logits."""
+    cfg = model.cfg
+    bundle = build_bundle(arch, "decode_32k", config=cfg, device=device)
+    cache, gen = _decode_cache(cfg, model.embed.dtype, device, seed)
     state = {"params": model, "cache": cache}
     tok = torch.randint(0, cfg.vocab, (LM_DECODE_BATCH, 1), generator=gen, device=device)
     pos0 = LM_DECODE_CACHE - LM_DECODE_TOKENS - 1
+    toks = [tok]
     state, out = bundle.step_fn(state, {"tokens": tok, "pos": pos0})  # warm-up
     tok = out["next_token"][:, None]
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for i in range(LM_DECODE_TOKENS):
+        toks.append(tok)
         state, out = bundle.step_fn(state, {"tokens": tok, "pos": pos0 + 1 + i})
         tok = out["next_token"][:, None]
     stop.record()
@@ -1407,11 +1490,28 @@ def _lm_decode(arch: str, model, device, seed: int) -> dict:
            f"lm {arch}: decode tokens out of range")
     del state, cache
     torch.cuda.empty_cache()
+    dtype = model.embed.dtype
+    refs, ref_s = [], []
+    for to, steps in ((dtype, len(toks)), (torch.float32, DECODE_F32_STEPS)):
+        t0 = time.perf_counter()
+        cache, _ = _decode_cache(cfg, dtype, device, seed)  # drawn as above, then cast
+        cache = {k: {n: t.to(to) for n, t in v.items()} for k, v in cache.items()}
+        model.to(to)  # the float32 pass is this model's last use
+        logits = []
+        with torch.inference_mode():
+            for i, t in enumerate(toks[:steps]):
+                lg, cache = lm_decode_step(model, cache, t, pos0 + i)
+                logits.append(lg[:, -1].float())
+        refs.append(torch.stack(logits).cpu())
+        del cache, logits
+        torch.cuda.empty_cache()
+        ref_s.append(time.perf_counter() - t0)
+    DECODE_REFS[arch] = (cfg, torch.stack(toks).cpu(), pos0, LM_DECODE_CACHE, *refs)
     return {"batch": LM_DECODE_BATCH, "cache_len": LM_DECODE_CACHE,
             "tokens": LM_DECODE_TOKENS, "positions": [pos0 + 1, pos0 + LM_DECODE_TOKENS],
             "ms_per_token": ms / LM_DECODE_TOKENS,
             "tokens_per_s": LM_DECODE_BATCH * LM_DECODE_TOKENS / (ms / 1e3),
-            "profile": profile,
+            "profile": profile, "serve_mesh_refs_s": dict(zip(("bfloat16", "float32"), ref_s)),
             "cut": {"batch": [ARCHS[arch].shapes()["decode_32k"].global_batch,
                               LM_DECODE_BATCH]}}
 
@@ -1586,6 +1686,8 @@ def phase_recsys(device, seed: int) -> dict:
            and bool((full64[got_ids] >= kth - RECSYS_SCORE_TOL).all()),
            f"recsys retrieval: top {k} off the float64 top {k} (score err {score_err})")
     retrieval_ms = _median_ms(lambda: retrieval.step_fn(state, batch), 5)
+    RECSYS_REFS.update(scores=scores.cpu(), top_ids=top["top_ids"].cpu(),
+                       top_scores=top["top_scores"].cpu())
     del host, full64
     bag = _recsys_bag(model, device, seed)
     del state, model, scores, cands
@@ -1927,10 +2029,33 @@ def _both_axes(before: dict, after: dict) -> dict:
     return out
 
 
+def _counts(measured: dict, derived: dict, steps: int = 1) -> dict:
+    """A case's collectives, per axis and op, against ``steps`` times the
+    count ``launch.dryrun.derived_collectives`` derives for one step."""
+    return {"equal": dryrun.measured_matches(measured, derived, steps), "measured": measured,
+            "derived_per_step": derived, "steps": steps}
+
+
+def _whole_leaf_digests(state: dict) -> dict:
+    """``tensor_digest`` of this rank's copy of each parameter and moment
+    that the data axis leaves whole (on TinyLlama's FSDP mesh, the norms),
+    and of the step count: the same on every rank where the ranks agree.
+    The FSDP shards differ by design, and gathering them whole (11 GB
+    through gloo) would only add copies that the gather makes equal."""
+    specs = state["params"].placement.specs
+    leaves = {"params": state["params"].state_dict(), "mu": state["opt"]["mu"],
+              "nu": state["opt"]["nu"]}
+    out = {f"{part}/{n}": tensor_digest(t) for part, tree in leaves.items()
+           for n, t in tree.items() if "data" not in specs[n]}
+    _check(len(out) > 0, "train_dp lm: no leaf is whole on the data axis")
+    return out | {"count": tensor_digest(state["opt"]["count"])}
+
+
 def _dp_lm(mesh, seed: int, cfg, seq_len: int, n_steps: int, digests: bool = True) -> dict:
     """TinyLlama's train steps on this rank, as ``_train_lm`` runs them on
     one: the same global batches, this rank's rows taken by the step;
-    ``digests``: of the final state gathered whole (11 GB through gloo)."""
+    ``digests``: of the final state's leaves that the data axis leaves
+    whole (``_whole_leaf_digests``)."""
     bundle = build_bundle(TRAIN_LM_ARCH, "train_4k", config=cfg, mesh=mesh)
     state = bundle.init_state_fn(seed)
     tokens_spec = {"tokens": InputSpec((TRAIN_LM_BATCH, seq_len + 1), torch.int32)}
@@ -1947,17 +2072,20 @@ def _dp_lm(mesh, seed: int, cfg, seq_len: int, n_steps: int, digests: bool = Tru
             losses.append(float(m["loss"]))  # waits for the step
             wall.append(time.perf_counter() - t0)
             gnorms.append(float(m["gnorm"]))
-    stats = _both_axes(before, mesh.stats())
+    after = mesh.stats()
+    stats = _both_axes(before, after)
     res = {"losses": losses, "gnorms": gnorms, "local_gnorm_step1": local.gnorm,
            "step_s_each": wall, "stats": stats,
            "collective_share": stats["seconds"] / sum(wall),
            "peak_device_bytes": _rank_peak(mesh),
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in state["params"].parameters()),
-           "flash_launches": flash_fwd.launches}
+           "flash_launches": flash_fwd.launches,
+           "counts": _counts(dryrun.stats_delta(before, after), dryrun.derived_for(
+               bundle, state["params"], mesh, batch=TRAIN_LM_BATCH, seq=seq_len), n_steps)}
     if digests:
         t0 = time.perf_counter()
-        res["digests"] = state_digests(state)
+        res["digests"] = _whole_leaf_digests(state)
         res["digest_s"] = time.perf_counter() - t0
     del state, batches
     _rank_peak(mesh, reset=True)
@@ -2036,7 +2164,8 @@ def _tp_prefill(mesh, seed: int, arch: str, cfg, tokens) -> dict:
         train_steps.gather_logits = real
     _rank_peak(mesh)  # the host clock up to the card's end
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    stats = _both_axes(before, mesh.stats())
+    after = mesh.stats()
+    stats = _both_axes(before, after)
     launches, variants = flash_fwd.launches, dict(flash_fwd.variant_launches)
     res = {"arch": arch, "n_layers": cfg.n_layers, "s": int(tokens.shape[1]),
            "heads_per_rank": [layer.attn.wq.shape[1] // cfg.d_head,
@@ -2047,6 +2176,8 @@ def _tp_prefill(mesh, seed: int, arch: str, cfg, tokens) -> dict:
            "prefill_ms": prefill_ms, "stats": stats,
            "collective_share": stats["seconds"] * 1e3 / prefill_ms,
            "peak_device_bytes": _rank_peak(mesh),
+           "counts": _counts(dryrun.stats_delta(before, after), dryrun.derived_for(
+               bundle, model, mesh, batch=int(tokens.shape[0]), seq=int(tokens.shape[1]))),
            "next_token": out["next_token"].tolist(), "logits": seen["logits"]}
     del state, model, out
     _rank_peak(mesh, reset=True)
@@ -2081,11 +2212,151 @@ def _tp_restart(mesh, seed: int, root: str) -> dict:
     return {"losses": out["losses"], "digests": state_digests(out["final_state"])}
 
 
-def _dp_rank(seed: int, root: str, lm_cfg, lm_seq: int, recsys_cfg, prefill: dict) -> dict:
+def _own_partial(axis, m, l, o):
+    """The serve_mesh control: the split-KV partials left unmerged, each
+    rank attending its own slots alone."""
+    return o / l.clamp_min(1e-30)[..., None]
+
+
+def _serve_decode(mesh, seed: int, arch: str, cfg, tokens, pos0: int, cache_len: int) -> dict:
+    """decode_32k on this rank of the model axis (see DECODE_REFS): the
+    parameters as the serving bundles place them (the prefill bundle's
+    init: the same rule), the lm phase's seeded cache cut to this rank's
+    shard by the bundle's ``cache_spec``, then the bundle's step at each
+    position, teacher-forced with ``tokens``; each step's logits (read off
+    ``lm_decode_step``), collectives and host time; then the control.  Then
+    the first DECODE_F32_STEPS positions again in float32 (the model and
+    the same cache cast), and their control."""
+    bundle = build_bundle(arch, "decode_32k", config=cfg, mesh=mesh)
+    model = build_bundle(arch, "prefill_32k", config=cfg, mesh=mesh).init_state_fn(seed)["params"]
+    spec = bundle.info["cache_spec"]
+    dtype = model.embed.dtype
+
+    def rank_cache(to):  # drawn whole in the model's dtype, as the lm phase's
+        full, _ = _decode_cache(cfg, dtype, mesh.device, seed, tokens.shape[1], cache_len)
+        return {k: {n: shard_of(t, tuple(spec) + (None,) * (t.dim() - 3), mesh).to(to, copy=True)
+                    for n, t in v.items()} for k, v in full.items()}
+
+    cache = rank_cache(dtype)
+    _rank_peak(mesh, reset=True)
+    derived = dryrun.derived_for(bundle, model, mesh, batch=int(tokens.shape[1]))
+    seen = []
+    real = train_steps.lm_decode_step
+
+    def keep(*a, **kw):
+        lg, c = real(*a, **kw)
+        seen.append(lg[:, -1].float())
+        return lg, c
+
+    def run(state, n: int, timed: bool):
+        """n steps, then the control: the last step again (the same slot
+        rewritten with the same entry) with the partials left unmerged."""
+        counts, stats0, wall, out = [], None, 0.0, None
+        for i in range(n):
+            if timed and i == 1:  # the timed steps: all but the first
+                _rank_peak(mesh)
+                t0, stats0 = time.perf_counter(), mesh.stats()
+            before = mesh.stats()
+            state, out = bundle.step_fn(state, {"tokens": tokens[i], "pos": pos0 + i})
+            counts.append(dryrun.stats_delta(before, mesh.stats()))
+        if timed:
+            _rank_peak(mesh)
+            wall = time.perf_counter() - t0
+        stats = _both_axes(stats0, mesh.stats()) if timed else None
+        with contextlib.ExitStack() as stack:
+            stack.callback(setattr, lm_attention, "_merge_partials",
+                           lm_attention._merge_partials)
+            lm_attention._merge_partials = _own_partial
+            bundle.step_fn(state, {"tokens": tokens[n - 1], "pos": pos0 + n - 1})
+        logits = torch.stack(seen).cpu()
+        seen.clear()
+        return state, out, counts, stats, wall, logits
+
+    tokens = tokens.to(mesh.device)
+    train_steps.lm_decode_step = keep
+    try:
+        state, out, counts, stats, wall, logits = run(
+            {"params": model, "cache": cache}, tokens.shape[0], timed=True)
+        cache_bytes = sum(t.numel() * t.element_size() for v in state["cache"].values()
+                          for t in v.values())
+        peak = _rank_peak(mesh)
+        del state, cache
+        t32 = time.perf_counter()
+        model.float()  # the float32 run: the last use of this model
+        *_, logits32 = run({"params": model, "cache": rank_cache(torch.float32)},
+                           DECODE_F32_STEPS, timed=False)
+        t32 = time.perf_counter() - t32
+    finally:
+        train_steps.lm_decode_step = real
+    res = {"arch": arch, "cache_spec": [list(a) if isinstance(a, tuple) else a for a in spec],
+           "cache_bytes": cache_bytes, "logits": logits[:-1], "control_logits": logits[-1],
+           "logits_f32": logits32[:-1], "control_logits_f32": logits32[-1], "f32_s": t32,
+           "next_token": out["next_token"].tolist(), "steps": len(counts),
+           "ms_per_token": wall * 1e3 / (len(counts) - 1), "stats": stats,
+           "collective_share": stats["seconds"] / wall, "peak_device_bytes": peak,
+           "counts_equal": all(_counts(c, derived)["equal"] for c in counts),
+           "counts": _counts(counts[-1], derived)}
+    del model
+    _rank_peak(mesh, reset=True)
+    return res
+
+
+def _serve_recsys(mesh, seed: int, cfg, retrieval: bool) -> dict:
+    """DeepFM's serve_bulk (and retrieval_cand) on this rank, on the recsys
+    phase's inputs (drawn from the same generator in the same order)."""
+    serve = build_bundle("deepfm", "serve_bulk", config=cfg, mesh=mesh)
+    state = serve.init_state_fn(seed)
+    gen = _gen(mesh.device, seed + 1)
+    ids = torch.randint(0, cfg.vocab_per_field, serve.abstract_inputs["ids"].shape,
+                        generator=gen, device=mesh.device, dtype=torch.int32)
+    _rank_peak(mesh, reset=True)
+    before = mesh.stats()
+    t0 = time.perf_counter()
+    scores = serve.step_fn(state, {"ids": ids})["scores"]
+    _rank_peak(mesh)
+    ms = (time.perf_counter() - t0) * 1e3
+    res = {"serve_bulk": {"scores": scores.cpu(), "ms": ms,
+                          "stats": _both_axes(before, mesh.stats()),
+                          "counts": _counts(dryrun.stats_delta(before, mesh.stats()),
+                                            dryrun.derived_for(serve, state["params"], mesh)),
+                          "peak_device_bytes": _rank_peak(mesh)}}
+    if retrieval:
+        rb = build_bundle("deepfm", "retrieval_cand", config=cfg, mesh=mesh)
+        q_ids = torch.randint(0, cfg.vocab_per_field, rb.abstract_inputs["ids"].shape,
+                              generator=gen, device=mesh.device, dtype=torch.int32)
+        cands = torch.randn((rb.info["candidates"], cfg.embed_dim), generator=gen,
+                            device=mesh.device)
+        before = mesh.stats()
+        t0 = time.perf_counter()
+        top = rb.step_fn(state, {"ids": q_ids, "candidates": cands})
+        _rank_peak(mesh)
+        res["retrieval_cand"] = {
+            "top_ids": top["top_ids"].cpu(), "top_scores": top["top_scores"].cpu(),
+            "ms": (time.perf_counter() - t0) * 1e3, "stats": _both_axes(before, mesh.stats()),
+            "candidates_each": rb.info["candidates"] // mesh.shape["data"],
+            "counts": _counts(dryrun.stats_delta(before, mesh.stats()),
+                              dryrun.derived_for(rb, state["params"], mesh))}
+    del state
+    _rank_peak(mesh, reset=True)
+    return res
+
+
+def _dryrun_cell(mesh) -> dict:
+    """DRYRUN_CELL's step through ``launch.dryrun.cell_on_rank`` on this
+    rank, the flash launches counted from 0 around it."""
+    _zero_flash_counts()
+    res = dryrun.cell_on_rank(*DRYRUN_CELL, mesh)
+    return res | {"launches": flash_fwd.launches,
+                  "variant_launches": dict(flash_fwd.variant_launches)}
+
+
+def _dp_rank(seed: int, root: str, lm_cfg, lm_seq: int, recsys_cfg, prefill: dict,
+             decode: dict) -> dict:
     """One rank of the train_dp launch: every case, at the configs the
     parent sends (the published ones on the card); then the model_axis
     cases on the same ranks as a (1, MODEL_AXIS_RANKS) mesh (``prefill``:
-    arch -> (config, tokens))."""
+    arch -> (config, tokens)), then the serve_mesh cases (``decode``: arch
+    -> (config, tokens, first position, cache slots))."""
     mesh = make_host_mesh()
     t0 = time.perf_counter()
     out = {"mesh": mesh.data.describe(), "shape": mesh.shape,
@@ -2101,6 +2372,14 @@ def _dp_rank(seed: int, root: str, lm_cfg, lm_seq: int, recsys_cfg, prefill: dic
                  "recsys": _tp_recsys(tp, seed, recsys_cfg),
                  "restart": _tp_restart(tp, seed, root),
                  "rank_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    out["serve_mesh"] = {
+        "decode": [_serve_decode(tp, seed, arch, cfg, tokens, pos0, cache_len)
+                   for arch, (cfg, tokens, pos0, cache_len) in decode.items()],
+        "recsys": {"2x1": _serve_recsys(mesh, seed, recsys_cfg, retrieval=True),
+                   "1x2": _serve_recsys(tp, seed, recsys_cfg, retrieval=False)},
+        "dryrun_cell": _dryrun_cell(tp),
+        "rank_s": time.perf_counter() - t0}
     return out
 
 
@@ -2116,7 +2395,7 @@ def _held(case: str, got: dict, ref: dict, steps: int, ranks, key,
     """A rank launch's train case against the one-rank run ``ref``: each
     of ``steps`` steps within ``rtol``, the control (rank 0's gradient norm
     before the cross-rank sums) outside it, and, where the ranks took
-    digests, every rank's gathered state equal bit for bit."""
+    digests, every rank's digests equal."""
     off = [_dp_off(got, ref, i) for i in range(steps)]
     ctrl = abs(got["local_gnorm_step1"] - ref["gnorms"][0]) / abs(ref["gnorms"][0])
     _check(all(o[k] <= rtol[k] for o in off for k in o),
@@ -2126,7 +2405,7 @@ def _held(case: str, got: dict, ref: dict, steps: int, ranks, key,
     identical = None
     if "digests" in got:
         identical = all(key(r)["digests"] == got["digests"] for r in ranks)
-        _check(identical, f"{case}: the ranks' gathered states differ")
+        _check(identical, f"{case}: the ranks' states differ")
     return {k: v for k, v in got.items() if k != "digests"} | {
         "one_rank": {"losses": ref["losses"][:steps], "gnorms": ref["gnorms"][:steps]},
         "off": off, "control_off": ctrl, "ranks_identical": identical,
@@ -2134,20 +2413,22 @@ def _held(case: str, got: dict, ref: dict, steps: int, ranks, key,
         "step_s": float(np.median(got["step_s_each"][1:] or got["step_s_each"]))}
 
 
-def phase_train_dp(device, seed: int, train_line: dict) -> tuple[dict, dict]:
+def phase_train_dp(device, seed: int, train_line: dict) -> tuple[dict, dict, dict]:
     """Data-parallel training on ranks sharing the card (see TRAIN_DP_*),
-    then the model_axis cases on the same ranks (see MODEL_AXIS_RANKS);
-    ``train_line`` is the train phase's, the one-rank values, and
-    PREFILL_REFS the lm phase's.  Returns both phases' lines."""
+    then the model_axis cases on the same ranks (see MODEL_AXIS_RANKS) and
+    the serve_mesh cases; ``train_line`` is the train phase's, the one-rank
+    values, and PREFILL_REFS, DECODE_REFS and RECSYS_REFS the lm and recsys
+    phases'.  Returns the three phases' lines."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as root:
         lm = ARCHS[TRAIN_LM_ARCH]
         prefill = {arch: (cfg, tokens) for arch, (cfg, tokens, _) in PREFILL_REFS.items()}
+        decode = {arch: ref[:4] for arch, ref in DECODE_REFS.items()}
         ranks = run_ranks(_dp_rank, TRAIN_DP_RANKS, device=device.type,
                           timeout=TRAIN_DP_TIMEOUT_S,
                           args=(seed, root, lm.config, lm.shapes()["train_4k"].seq_len,
-                                ARCHS["deepfm"].config, prefill))
+                                ARCHS["deepfm"].config, prefill, decode))
         launch_s = time.perf_counter() - t0
         r0 = ranks[0]
         line = {"ranks": TRAIN_DP_RANKS, "backend": ranks.backend, "devices": ranks.devices,
@@ -2162,6 +2443,7 @@ def phase_train_dp(device, seed: int, train_line: dict) -> tuple[dict, dict]:
         line["recsys"] = _held("train_dp recsys", r0["recsys"], train_line["recsys"],
                                TRAIN_DP_STEPS, ranks, lambda r: r["recsys"])
         _check(line["lm"]["flash_launches"] == 0, "train_dp lm: the flash kernel ran under grad")
+        _check_counts("train_dp lm", [r["lm"]["counts"] for r in ranks])
 
         # -- the restart across rank counts --
         n, every, crash_at, more = TRAIN_DP_RESTART
@@ -2200,7 +2482,123 @@ def phase_train_dp(device, seed: int, train_line: dict) -> tuple[dict, dict]:
         tp_line = _model_axis_line(ranks, train_line, device, seed, root)
     line.update(nvidia_smi=_nvidia_smi(), phase_s=time.perf_counter() - t0)
     tp_line["nvidia_smi"] = line["nvidia_smi"]
-    return line, tp_line
+    serve_line = _serve_mesh_line(ranks, device.type == "cuda")
+    serve_line["nvidia_smi"] = line["nvidia_smi"]
+    return line, tp_line, serve_line
+
+
+def _check_counts(case: str, counts: list) -> None:
+    """Every rank's measured collectives equal the derived count."""
+    for r, c in enumerate(counts):
+        _check(c["equal"], f"{case}: rank {r}'s collectives {c['measured']} are not the "
+                           f"derived {c['derived_per_step']} x {c['steps']}")
+
+
+def _serve_mesh_line(ranks, on_card: bool) -> dict:
+    """The serve_mesh cases of the launch ``ranks``, held (see DECODE_REFS
+    and DRYRUN_CELL; a CPU rehearsal launches no flash kernel)."""
+    line = {"ranks": TRAIN_DP_RANKS, "rank_s": [r["serve_mesh"]["rank_s"] for r in ranks],
+            "decode": []}
+    for i, (arch, (cfg, tokens, pos0, cache_len, ref, ref32)) in enumerate(DECODE_REFS.items()):
+        each = [r["serve_mesh"]["decode"][i] for r in ranks]
+        held = {}
+        for key, want, bound in (("", ref, DECODE_MESH_BF16_SHARE),
+                                 ("_f32", ref32, DECODE_MESH_F32_SHARE)):
+            rms = want.square().mean(dim=(1, 2)).sqrt()  # each step's
+            share = max(float(((p["logits" + key] - want).abs().amax(dim=(1, 2)) / rms).max())
+                        for p in each)
+            ctrl = min(float((p["control_logits" + key] - want[-1]).abs().max() / rms[-1])
+                       for p in each)
+            _check(all(bool(torch.isfinite(p["logits" + key]).all()) for p in each)
+                   and share <= bound,
+                   f"serve_mesh {arch}{key}: decode logits off one rank's by {share} of their "
+                   f"rms (bound {bound})")
+            _check(ctrl > bound, f"serve_mesh {arch}{key}: the control (the partials "
+                                 f"unmerged) passed: {ctrl} <= {bound}")
+            held[key] = share, ctrl
+        _check(all(p["counts_equal"] for p in each),
+               f"serve_mesh {arch}: a decode step's collectives are not the derived count")
+        same = all(p["next_token"] == ref[-1].argmax(-1).tolist() for p in each)
+        p0 = each[0]
+        line["decode"].append({
+            "arch": arch, "mesh": {"data": 1, "model": TRAIN_DP_RANKS},
+            "batch": int(tokens.shape[1]), "cache_len": cache_len,
+            "positions": [pos0, pos0 + p0["steps"] - 1], "cache_spec": p0["cache_spec"],
+            "ms_per_token_each": [p["ms_per_token"] for p in each],
+            "stats": p0["stats"], "collective_share": p0["collective_share"],
+            "cache_bytes_each": [p["cache_bytes"] for p in each],
+            "peak_device_bytes_each": [p["peak_device_bytes"] for p in each],
+            "logit_share": held[""][0], "bound_share": DECODE_MESH_BF16_SHARE,
+            "control_share": held[""][1], "f32_steps": DECODE_F32_STEPS,
+            "logit_share_f32": held["_f32"][0], "bound_share_f32": DECODE_MESH_F32_SHARE,
+            "control_share_f32": held["_f32"][1], "f32_s_each": [p["f32_s"] for p in each],
+            "same_last_token": same, "counts_per_step": p0["counts"]["derived_per_step"],
+            "cut": {"batch": [ARCHS[arch].shapes()["decode_32k"].global_batch,
+                              int(tokens.shape[1])]}})
+    line["recsys"] = {}
+    for key in ("2x1", "1x2"):
+        each = [r["serve_mesh"]["recsys"][key] for r in ranks]
+        err = max(_max_abs_err(p["serve_bulk"]["scores"], RECSYS_REFS["scores"]) for p in each)
+        _check(err <= RECSYS_SCORE_TOL, f"serve_mesh deepfm {key}: scores off one rank's by {err}")
+        _check_counts(f"serve_mesh deepfm serve_bulk {key}",
+                      [p["serve_bulk"]["counts"] for p in each])
+        case = {"serve_bulk": {"max_abs_err": err, "tol": RECSYS_SCORE_TOL,
+                               "ms_each": [p["serve_bulk"]["ms"] for p in each],
+                               "stats": each[0]["serve_bulk"]["stats"],
+                               "peak_device_bytes_each": [p["serve_bulk"]["peak_device_bytes"]
+                                                          for p in each],
+                               "counts": each[0]["serve_bulk"]["counts"]["derived_per_step"]}}
+        if "retrieval_cand" in each[0]:
+            got = [p["retrieval_cand"] for p in each]
+            same = all(torch.equal(g["top_ids"], RECSYS_REFS["top_ids"]) for g in got)
+            s_err = max(_max_abs_err(g["top_scores"], RECSYS_REFS["top_scores"]) for g in got)
+            _check(same and s_err <= RECSYS_SCORE_TOL,
+                   f"serve_mesh deepfm {key}: retrieval's top ids differ ({same}) or scores "
+                   f"off by {s_err}")
+            _check_counts(f"serve_mesh deepfm retrieval_cand {key}", [g["counts"] for g in got])
+            case["retrieval_cand"] = {"same_top_ids": same, "max_abs_err": s_err,
+                                      "candidates_each": got[0]["candidates_each"],
+                                      "ms_each": [g["ms"] for g in got],
+                                      "stats": got[0]["stats"],
+                                      "counts": got[0]["counts"]["derived_per_step"]}
+        line["recsys"][key] = case
+    cell = [r["serve_mesh"]["dryrun_cell"] for r in ranks]
+    n_layers = reduced_config(ARCHS[DRYRUN_CELL[0]]).n_layers
+    _check_counts(f"serve_mesh dry-run cell {DRYRUN_CELL}",
+                  [_counts(c["measured"], c["derived"]) for c in cell])
+    _check(not on_card or all(c["launches"] == n_layers for c in cell),
+           f"serve_mesh dry-run cell {DRYRUN_CELL}: a rank launched flash "
+           f"{[c['variant_launches'] for c in cell]}, not once in each of {n_layers} layers")
+    line["dryrun_cell"] = {"arch": DRYRUN_CELL[0], "shape": DRYRUN_CELL[1], "config": "reduced",
+                           "n_layers": n_layers, "mesh": cell[0]["shape"],
+                           "flash_launches_each": [c["launches"] for c in cell],
+                           "variant_launches": cell[0]["variant_launches"],
+                           "counts_per_step": cell[0]["derived"], "counts_equal": True}
+    line["launches"] = sum(c["launches"] for c in cell)
+    return line
+
+
+def phase_dryrun() -> dict:
+    """``launch.dryrun``'s reckoning of every cell at both production
+    meshes, on the host (no card work), beside this card's memory: the
+    reference's "does it fit" question for an H100.  Not a gate."""
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    cells, pending, skipped = [], 0, 0
+    for arch, shape, kind, rec in dryrun.reckon_all():
+        if kind is None:
+            skipped += 1
+        elif rec["ok"] is None:
+            pending += 1
+        else:
+            st = rec["state_bytes_per_rank"]
+            cells.append({"arch": arch, "shape": shape, "mesh": kind,
+                          "state_bytes_per_rank": st,
+                          "wire_bytes_per_device": rec["collectives"]["wire_bytes_per_device"],
+                          "collective_calls": sum(rec["collectives"]["counts"].values()),
+                          "state_fits_card": st["total"] <= total})
+    return {"card_total_memory": total, "cells": cells, "pending": pending, "skipped": skipped,
+            "not_reckoned": dryrun.NOT_RECKONED, "reckon_s": time.perf_counter() - t0}
 
 
 def _model_axis_line(ranks, train_line: dict, device, seed: int, root: str) -> dict:
@@ -2213,6 +2611,7 @@ def _model_axis_line(ranks, train_line: dict, device, seed: int, root: str) -> d
             "rank_s": [r["tp"]["rank_s"] for r in ranks]}
     line["lm"] = _held("model_axis lm", tp0["lm"], train_line["lm"], 1, ranks,
                        lambda r: r["tp"]["lm"], MODEL_AXIS_LM_RTOL)
+    _check_counts("model_axis lm", [r["tp"]["lm"]["counts"] for r in ranks])
     line["lm"]["rtol"] = MODEL_AXIS_LM_RTOL
     _check(line["lm"]["flash_launches"] == 0, "model_axis lm: the flash kernel ran under grad")
     line["recsys"] = _held("model_axis recsys", tp0["recsys"], train_line["recsys"],
@@ -2239,10 +2638,12 @@ def _model_axis_line(ranks, train_line: dict, device, seed: int, root: str) -> d
         _check(all(bool(torch.isfinite(p["logits"]).all()) for p in each)
                and max(errs) <= bound,
                f"model_axis {arch}: the prefill's logits off one rank's by {max(errs)} (> {bound})")
+        _check_counts(f"model_axis {arch} prefill", [p["counts"] for p in each])
         p0 = each[0]
         line["prefill"].append({
             **{k: p0[k] for k in ("arch", "n_layers", "s", "heads_per_rank", "experts_per_rank",
                                   "fsdp", "variant_launches", "stats", "collective_share")},
+            "counts_per_step": p0["counts"]["derived_per_step"],
             "flash_launches_each": [p["flash_launches"] for p in each],
             "prefill_ms_each": [p["prefill_ms"] for p in each],
             "peak_device_bytes_each": [p["peak_device_bytes"] for p in each],
@@ -3566,8 +3967,8 @@ def _mesh_rank(shared: str, stages: list, probe: bool, swap_sources: list | None
     """One rank of the mesh phase, in its own process: map the graph the
     parent shared, build this rank's own block of each layout, run the
     traversals (and, at D = 8, the relax kernel at the hub rank's planes, a
-    swap re-layout and the executor, unless its rebuilds are projected past
-    the limit)."""
+    swap re-layout and the executor, on the graph ``executor["graph"]``
+    names where the parent shared a cut one)."""
     import torch.distributed as dist
 
     t0 = time.perf_counter()
@@ -3607,24 +4008,16 @@ def _mesh_rank(shared: str, stages: list, probe: bool, swap_sources: list | None
     if swap_sources is not None:
         out["swap"] = _mesh_swap_run(pg, mesh, swap_sources)
     if executor is not None:
-        # every rank rebuilds its own block for each planned map: projected
-        # at the slowest rank's first build
-        build_s = mesh.all_reduce(torch.tensor([max(
-            v["seconds"] for v in out["layouts"].values())], device=mesh.device), "max").item()
-        projected = executor["maps"] * build_s
-        if projected > executor["max_s"]:
-            out["executor"] = {"cut": True, "projected_s": projected, "build_s": build_s}
-            return out
+        xpg = load_shared_graph(executor["graph"]) if executor.get("graph") else pg
         cfg = _rank_config(mesh, window=1, relayout=True)
         _zero_launch_counts()
         stats0 = mesh.stats.snapshot()
-        ex, rep, line = _execute(pg, cfg, executor["tau"], executor["plan"],
+        ex, rep, line = _execute(xpg, cfg, executor["tau"], executor["plan"],
                                  strategy_fn=STRATEGIES["ffd"], replan=True,
                                  sketch=executor["sketch"])
         line["collective_s"] = mesh.stats.snapshot()["seconds"] - stats0["seconds"]
         line["relayout_builds"] = ex.engine._mesh_prog.relayouts
-        out["executor"] = {"cut": False, "projected_s": projected, "build_s": build_s,
-                           "line": line, "report": _report_fields(rep),
+        out["executor"] = {"line": line, "report": _report_fields(rep),
                            "host_rss_bytes": _rss(),
                            "variant_launches": dict(relax_rowptr.variant_launches)}
     return out
@@ -3670,9 +4063,7 @@ def _mesh_executor_plan(pg, trace, pred_tf, device) -> dict:
     cfg = EngineConfig(device=str(device), backend="cuda", window=1)
     _, dense, dense_line = _execute(pg, cfg, tau, plan, strategy_fn=STRATEGIES["ffd"],
                                     replan=True, sketch=sketch)
-    # only a graph above the cut scale is ever cut
-    max_s = MESH_EXECUTOR_MAX_S if np.log2(pg.graph.n_vertices) > MESH_EXECUTOR_CUT_SCALE else np.inf
-    return {"args": {"tau": tau, "plan": plan, "sketch": sketch, "maps": maps, "max_s": max_s},
+    return {"args": {"tau": tau, "plan": plan, "sketch": sketch, "maps": maps},
             "dense": dense, "dense_wall_s": dense_line["wall_s"]}
 
 
@@ -3752,7 +4143,24 @@ def phase_mesh(pg, runs: dict, bfs_trace, pred_tf, device, seed: int) -> dict:
     # the hub's rank at D = 8 holds the largest planes: the kernel is timed
     # there, at the shapes the engine hands it
     hub_rank = int(contiguous_device_map(pg.n_parts, MESH_SIZES[0])[pg.part_of_vertex[hub]])
-    ex = _mesh_executor_plan(pg, bfs_trace, pred_tf, device)
+    shared = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    ex_info = {"scale": int(np.log2(n))}
+    if np.log2(n) > MESH_EXECUTOR_SCALE:
+        # the executor's depth cut: its plan and the dense executor on a
+        # smaller graph, shared beside the full one for the same launch
+        t0 = time.perf_counter()
+        xpg = build_graph(MESH_EXECUTOR_SCALE, pg.n_parts)[0]
+        _, xtrace = bsp.run_sssp(xpg, 0, max_supersteps=MAX_SUPERSTEPS, collect_subgraphs=False,
+                                 config=EngineConfig(device=str(device), backend="cuda"))
+        ex = _mesh_executor_plan(xpg, xtrace, predict_time_function(xpg, 0)[0], device)
+        share_graph(xpg, shared / "cut")
+        ex["args"]["graph"] = str(shared / "cut")
+        ex_info = {"scale": MESH_EXECUTOR_SCALE, "cut": {"scale": [int(np.log2(n)),
+                                                                   MESH_EXECUTOR_SCALE]},
+                   "cut_setup_s": time.perf_counter() - t0}
+        del xpg
+    else:
+        ex = _mesh_executor_plan(pg, bfs_trace, pred_tf, device)
 
     bfs_sources = programs[0][2]
     jobs = list(programs)
@@ -3765,7 +4173,6 @@ def phase_mesh(pg, runs: dict, bfs_trace, pred_tf, device, seed: int) -> dict:
     )
     launches: dict = {v: 0 for v in VARIANTS}
     launch_s, results, summary = {}, {}, {}
-    shared = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
     with _HostMemory() as host_mem:
         try:
             t0 = time.perf_counter()
@@ -3780,31 +4187,8 @@ def phase_mesh(pg, runs: dict, bfs_trace, pred_tf, device, seed: int) -> dict:
                                          args=(str(shared / "livj"), *rank_args))
                 launch_s[key] = time.perf_counter() - t0
                 host_mem.mark(f"{key} ranks")
-            ex_results, cut = results["D8"], results["D8"][0]["executor"]
-            ex_info = {"planned_maps": ex["args"]["maps"], "projected_s": cut["projected_s"],
-                       "cut": cut["cut"], "scale": int(np.log2(n))}
-            if cut["cut"]:
-                # the rebuilds were projected past the limit: the run is made
-                # on a graph cut to MESH_EXECUTOR_CUT_SCALE
-                ex_info["reason"] = (
-                    f"{ex['args']['maps']} re-layouts at {cut['build_s']:.1f} s each on the "
-                    f"slowest rank (projected {cut['projected_s']:.0f} s; limit "
-                    f"{MESH_EXECUTOR_MAX_S:.0f} s)")
-                xpg = build_graph(MESH_EXECUTOR_CUT_SCALE, pg.n_parts)[0]
-                _, xtrace = bsp.run_sssp(xpg, 0, max_supersteps=MAX_SUPERSTEPS,
-                                         collect_subgraphs=False,
-                                         config=EngineConfig(device=str(device), backend="cuda"))
-                ex = _mesh_executor_plan(xpg, xtrace, predict_time_function(xpg, 0)[0], device)
-                ex_info["scale"] = MESH_EXECUTOR_CUT_SCALE
-                share_graph(xpg, shared / "cut")
-                t0 = time.perf_counter()
-                ex_results = run_ranks(_mesh_rank, 8, device=device.type,
-                                       timeout=MESH_LAUNCH_TIMEOUT_S,
-                                       args=(str(shared / "cut"), [(None, [])], False, None, None,
-                                             ex["args"]))
-                launch_s["executor"] = time.perf_counter() - t0
-                host_mem.mark("executor ranks")
-            ex_info["dense_wall_s"] = ex["dense_wall_s"]
+            ex_results = results["D8"]
+            ex_info.update(planned_maps=ex["args"]["maps"], dense_wall_s=ex["dense_wall_s"])
         finally:
             shutil.rmtree(shared, ignore_errors=True)
 
@@ -3879,7 +4263,6 @@ def phase_mesh(pg, runs: dict, bfs_trace, pred_tf, device, seed: int) -> dict:
         "collective_share": line["collective_s"] / line["wall_s"],
         "relayout_s": max(sum(b["seconds"] for b in rank) for rank in builds),
         "relayout_builds_by_rank": builds,
-        "launch_s": launch_s.get("executor"),
         "host_rss_bytes": max(r["executor"]["host_rss_bytes"] for r in ex_results),
     }
     summary.update(
@@ -3985,7 +4368,7 @@ def phase_analysis(pg, device, seed: int) -> dict:
 def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
                  seg_livj: dict, path_launches: dict, mesh_planes: list, gnn: dict,
                  gnn_case: dict, lm: dict, recsys: dict, train_line: dict,
-                 model_axis: dict) -> dict:
+                 model_axis: dict, serve_mesh: dict) -> dict:
     """One entry per kernel the main path launched, with its numbers at the
     main path's own shape: the relax kernel's local closure reduction, the
     segment sum over uniform ids, the flash kernel at the Mixtral 32k
@@ -4054,7 +4437,8 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
                 {"segment_sum": launches, "gnn": gnn["launches"], "recsys": recsys["launches"],
                  "train": train_line["launches"]}
                 if phase is seg else {"flash_attention": launches, "lm": lm["launches"],
-                                      "model_axis": model_axis["launches"]}),
+                                      "model_axis": model_axis["launches"],
+                                      "serve_mesh": serve_mesh["launches"]}),
             "max_abs_err": max(c["max_abs_err"] for c in [main, *more, *phase["small"]]),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],
@@ -4100,10 +4484,13 @@ def main(argv=None) -> int:
     _emit("recsys", report["recsys"])
     report["train"] = phase_train(device, args.seed)
     _emit("train", report["train"])
-    report["train_dp"], report["model_axis"] = phase_train_dp(device, args.seed,
-                                                              report["train"])
+    report["train_dp"], report["model_axis"], report["serve_mesh"] = phase_train_dp(
+        device, args.seed, report["train"])
     _emit("train_dp", report["train_dp"])
     _emit("model_axis", report["model_axis"])
+    _emit("serve_mesh", report["serve_mesh"])
+    report["dryrun"] = phase_dryrun()
+    _emit("dryrun", report["dryrun"])
     pg, report["graph"] = build_graph(args.scale, LIVJ_PARTS)
     _emit("graph", report["graph"])
     report["gnn"], gnn_case = phase_gnn(pg, device, args.seed, args.scale)
@@ -4140,7 +4527,7 @@ def main(argv=None) -> int:
         report["flash_attention"], report["segment_sum_livj"],
         {path: report[path]["variant_launches"] for path in ("elastic", "serve", "mesh")},
         report["mesh"]["kernel_planes"], report["gnn"], gnn_case, report["lm"],
-        report["recsys"], report["train"], report["model_axis"],
+        report["recsys"], report["train"], report["model_axis"], report["serve_mesh"],
     )["kernels"]
     report["wall_s"] = time.perf_counter() - t_start
     report["phase_seconds"] = dict(PHASE_SECONDS)

@@ -12,7 +12,9 @@ state.  Leaves may be bfloat16 (``ml_dtypes``' numpy type); they are
 widened to float32 on the way, which is exact.  Given a ``mesh``
 (``launch.mesh.make_mesh``), a model and its moments keep only this rank's
 shards, placed by the family's rule table fitted to the mesh
-(``dist.sharding.place``), as ``launch.steps`` places a bundle's state.
+(``dist.sharding.place``), as ``launch.steps`` places a bundle's state, and
+a decode cache (``lm_cache_from_numpy``) the rank's shard under the
+reference's ``cache_spec``.
 """
 
 from __future__ import annotations
@@ -122,10 +124,17 @@ def _load_tree(module: torch.nn.Module, tree) -> None:
         raise KeyError(f"the tree holds no value for {missing}")
 
 
-def _place(module: torch.nn.Module, specs_of, mesh) -> torch.nn.Module:
+def _place(module: torch.nn.Module, specs_of, mesh, fsdp: bool = True) -> torch.nn.Module:
     """``module`` sharded on ``mesh`` by the rule table ``specs_of``
-    (unchanged without a mesh)."""
-    return module if mesh is None else sharding.place(module, specs_of(module), mesh)
+    (unchanged without a mesh; ``fsdp=False`` drops the data axis from
+    every spec, as a serving bundle does where it fits)."""
+    if mesh is None:
+        return module
+    specs = specs_of(module)
+    if not fsdp:
+        specs = {n: tuple(None if ax == sharding.FSDP else ax for ax in spec)
+                 for n, spec in specs.items()}
+    return sharding.place(module, specs, mesh)
 
 
 def gnn_params_from_numpy(kind: str, tree: dict, cfg, *, device="cuda",
@@ -155,13 +164,15 @@ def _unstack(stacked) -> list:
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def lm_params_from_numpy(tree: dict, cfg, *, device="cuda", mesh=None) -> torch.nn.Module:
+def lm_params_from_numpy(tree: dict, cfg, *, device="cuda", mesh=None,
+                         fsdp: bool = True) -> torch.nn.Module:
     """The port's ``Transformer`` for ``cfg`` on ``device``, in the dtype of
     the tree's embedding, holding the parameter ``tree`` of
     ``init_lm_params`` (e.g. ``jax.tree.map(np.asarray, params)``): its
     ``dense_layers``/``moe_layers`` stacks ``[L, ...]`` are unstacked into the
     module lists; every leaf is checked by shape, and a missing or extra leaf
-    raises."""
+    raises.  ``fsdp``: see ``_place`` (``launch.steps.serving_fsdp`` says
+    what a serving bundle keeps)."""
     from repro_torch.models.transformer import Transformer
 
     dtype = _DTYPES[np.asarray(tree["embed"]).dtype.name]
@@ -172,7 +183,34 @@ def lm_params_from_numpy(tree: dict, cfg, *, device="cuda", mesh=None) -> torch.
     module = Transformer(cfg, generator=torch.Generator().manual_seed(0), device=device,
                          dtype=dtype)
     _load_tree(module, tree)
-    return _place(module, sharding.lm_param_specs, mesh)
+    return _place(module, sharding.lm_param_specs, mesh, fsdp)
+
+
+def lm_cache_from_numpy(cache: dict, cfg, *, device="cuda", mesh=None, dtype=None) -> dict:
+    """A decode cache in the reference's layout (``{"dense"|"moe": {name:
+    [L, B, T, ...]}}`` as numpy, e.g. a prefilled ``init_lm_cache``) as the
+    port's, on ``device`` in ``dtype`` (the arrays' own by default, bfloat16
+    widened to float32); on ``mesh`` the rank's shard under
+    ``models.transformer.cache_spec`` (the batch over the batch axes where
+    they divide it, the time axis over ``model`` unless
+    ``REPRO_NO_SPLITKV``)."""
+    from repro_torch.models.transformer import cache_spec
+
+    out = {}
+    for key, leaves in cache.items():
+        out[key] = {}
+        for name, arr in leaves.items():
+            arr = np.array(arr)  # a writable copy: torch shares the buffer
+            if arr.dtype.name == "bfloat16":
+                arr = arr.astype(np.float32)
+            t = torch.as_tensor(arr, device=torch.device(device))
+            if dtype is not None:
+                t = t.to(dtype)
+            if mesh is not None:
+                spec = cache_spec(cfg, t.shape[1], t.shape[2], mesh)
+                t = sharding.shard_of(t, spec, mesh).clone(memory_format=torch.contiguous_format)
+            out[key][name] = t
+    return out
 
 
 def recsys_params_from_numpy(tree: dict, cfg, *, device="cuda", mesh=None) -> torch.nn.Module:

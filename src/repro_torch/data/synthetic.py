@@ -14,8 +14,8 @@ the host would take seconds to draw each step.  The CPU's stream and a
 card's differ.
 
 Data-parallel ranks all draw the global batch and take their rows of it
-(``shard_batch``, by their data index), so a shard is exactly rows of the
-one-rank batch.
+(``shard_batch``, by their index on the batch axes, pod-major), so a shard
+is exactly rows of the one-rank batch.
 """
 
 from __future__ import annotations
@@ -73,19 +73,24 @@ def make_batch(abstract_inputs: dict, *, seed: int, step: int, bounds: dict | No
     return out
 
 
-def shard_batch(batch: dict, mesh) -> dict:
-    """This data rank's rows of a global batch: the rank at data index r of
-    D takes rows ``[r*B/D, (r+1)*B/D)`` of every input (the reference's
-    ``P(dp, ...)`` placement; the model axis shares them).  A batch of B rows that D ranks cannot split evenly
-    raises."""
+def shard_batch(batch: dict, mesh, *, replicate_uneven: bool = False) -> dict:
+    """This batch rank's rows of a global batch: the rank at index r of the
+    D = pod x data batch ranks (pod-major, ``HostMesh.batch``) takes rows
+    ``[r*B/D, (r+1)*B/D)`` of every input (the reference's ``P(("pod",
+    "data"), ...)`` placement; the model axis shares them).  A batch of B
+    rows that D ranks cannot split evenly raises, or, with
+    ``replicate_uneven`` (the reference's serving specs: ``P(None, ...)``
+    where B does not divide), is returned whole to every rank."""
     d = dp_size(mesh)
     rows = {int(t.shape[0]) for t in batch.values()}
     if len(rows) != 1:
         raise ValueError(f"a batch's inputs disagree on their rows: {sorted(rows)}")
     (b,) = rows
     if b % d:
+        if replicate_uneven:
+            return batch
         raise ValueError(f"a batch of {b} rows cannot be split over {d} data ranks")
-    lo = mesh.data.rank * (b // d)
+    lo = mesh.batch.rank * (b // d)
     return {name: t[lo:lo + b // d] for name, t in batch.items()}
 
 

@@ -19,8 +19,8 @@ The JAX package drives every mesh device from one controller with
   compression -- ``compressed_psum``: an int8-quantized sum over the mesh
               with error feedback.
 
-``sharding`` also holds the data axes of a mesh (``dp_axes``, ``dp_size``),
-the data-parallel gradient mean (``all_reduce_grads``), the reference's
+``sharding`` also holds the batch axes of a mesh (``dp_axes``, ``dp_size``:
+pod x data), the data-parallel gradient mean (``all_reduce_grads``), the reference's
 parameter rule tables (LM, GNN, recsys), fitted to a mesh (``fit_specs``)
 and applied to a module (``place``), and the autograd pairs of the model
 axis and FSDP (``copy_to_model``, ``reduce_from_model``,

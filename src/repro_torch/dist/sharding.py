@@ -22,10 +22,12 @@ counted and timed in one place (``CollectiveStats``):
 ``partition_mesh(1)`` outside a launched rank is a legal one-rank mesh; the
 engine takes its dense path for it.
 
-Data-parallel training (``launch.mesh``'s ``("data", "model")`` mesh,
-``launch.steps``) reads two more things here: ``dp_axes`` and ``dp_size``,
-the batch axes of a mesh and their ranks, and ``all_reduce_grads``, the
-data axis's gradient mean over the leaves the data axis does not split,
+Data-parallel training (``launch.mesh``'s ``("pod", "data", "model")``
+mesh, ``launch.steps``) reads two more things here: ``dp_axes`` and
+``dp_size``, the batch axes of a mesh (``("pod", "data")``, as the
+reference's) and their ranks, and ``all_reduce_grads``, the gradient mean
+over the batch axes: a leaf the data axis leaves whole is averaged over pod
+x data, an FSDP leaf (already reduce-scattered over data) over pod alone,
 summed bucket by bucket through ``PartitionMesh.all_reduce`` so each call
 is counted.
 
@@ -257,9 +259,8 @@ def _check_device(dev: torch.device) -> None:
 # the data axes and the gradient sum over them
 # ---------------------------------------------------------------------------
 
-#: batch-like axes (the reference's ``_BATCH_AXES`` less ``pod``, which only
-#: its production mesh has)
-_BATCH_AXES = ("data",)
+#: batch-like axes, in priority order (the reference's); FSDP lives on ``data``
+_BATCH_AXES = ("pod", "data")
 
 #: the most bytes one gradient all-reduce carries: ``all_reduce`` clones its
 #: input, so a bucket costs twice its size on the device while it is summed
@@ -272,37 +273,54 @@ def dp_axes(mesh) -> tuple[str, ...]:
 
 
 def dp_size(mesh) -> int:
-    """The ranks along ``mesh``'s data axis: how many shards a batch takes."""
-    return mesh.data.world_size
+    """The ranks along ``mesh``'s batch axes (pod x data): how many shards
+    a batch takes."""
+    return mesh.batch.world_size
 
 
 def all_reduce_grads(named_grads: dict, params: dict, mesh: PartitionMesh, *,
-                     summed: frozenset = frozenset()) -> dict:
-    """The mean over ``mesh``'s ranks of each rank's gradients.
+                     summed: frozenset = frozenset(), pod: PartitionMesh | None = None) -> dict:
+    """The mean over the batch ranks of each rank's gradients.
 
-    ``named_grads`` maps each name of ``params`` (name -> parameter, in an
-    order every rank shares) to its gradient, or None where autograd gave
-    none on this rank: it counts as zeros, so every rank sends the same
-    bytes.  The names in ``summed`` are leaves the data axis splits (FSDP):
-    their gradients are already the ranks' sum (``fsdp_gather``'s
-    reduce-scatter) and are only divided by the rank count.  The others'
-    gradients of one dtype are laid end to end and cut into buckets of at
-    most ``GRAD_BUCKET_BYTES``, a tensor split across two where it
-    straddles a cut; each bucket is summed by one
-    ``mesh.all_reduce(op="sum")`` in that dtype, divided by the rank count
-    and written back into the gradients, in place.  Returns name ->
-    gradient, a zero tensor where the rank had None.
+    ``mesh`` is the batch axes' ``PartitionMesh`` (``HostMesh.batch``: pod x
+    data; the data axis where there is no pod axis).  ``named_grads`` maps
+    each name of ``params`` (name -> parameter, in an order every rank
+    shares) to its gradient, or None where autograd gave none on this rank:
+    it counts as zeros, so every rank sends the same bytes.  The names in
+    ``summed`` are leaves the data axis splits (FSDP): their gradients are
+    already the data ranks' sum (``fsdp_gather``'s reduce-scatter); they are
+    summed over ``pod`` (the pod ranks hold replicas of the same shard)
+    where it has more than one rank, then divided by the batch rank count.
+    The others' gradients are summed over ``mesh``.  Each sum lays the
+    gradients of one dtype end to end and cuts them into buckets of at most
+    ``GRAD_BUCKET_BYTES``, a tensor split across two where it straddles a
+    cut; each bucket is summed by one ``all_reduce(op="sum")`` in that
+    dtype, divided by the batch rank count and written back into the
+    gradients, in place.  Returns name -> gradient, a zero tensor where the
+    rank had None.
     """
     out = {}
     for name, p in params.items():
         g = named_grads.get(name)
         out[name] = torch.zeros_like(p) if g is None else g.contiguous()
+    n_ranks = mesh.world_size
+    whole = {n: g for n, g in out.items() if n not in summed}
+    split = {n: g for n, g in out.items() if n in summed}
+    _mean_buckets(whole, mesh, n_ranks)
+    if pod is not None and pod.world_size > 1:
+        _mean_buckets(split, pod, n_ranks)
+    else:
+        for g in split.values():
+            g.div_(n_ranks)
+    return out
+
+
+def _mean_buckets(grads: dict, axis: PartitionMesh, n_ranks: int) -> None:
+    """``grads`` summed over ``axis`` bucket by bucket (see
+    ``all_reduce_grads``) and divided by ``n_ranks``, in place."""
     by_dtype: dict = {}
-    for name, g in out.items():
-        if name in summed:
-            g.div_(mesh.world_size)
-        else:
-            by_dtype.setdefault(g.dtype, []).append(g.view(-1))
+    for g in grads.values():
+        by_dtype.setdefault(g.dtype, []).append(g.view(-1))
     for dtype in sorted(by_dtype, key=str):  # one order on every rank
         cap = max(1, GRAD_BUCKET_BYTES // torch.empty((), dtype=dtype).element_size())
         pieces, n = [], 0
@@ -314,17 +332,16 @@ def all_reduce_grads(named_grads: dict, params: dict, mesh: PartitionMesh, *,
                 n += take
                 off += take
                 if n == cap:
-                    _mean_bucket(pieces, mesh)
+                    _mean_bucket(pieces, axis, n_ranks)
                     pieces, n = [], 0
         if pieces:
-            _mean_bucket(pieces, mesh)
-    return out
+            _mean_bucket(pieces, axis, n_ranks)
 
 
-def _mean_bucket(pieces: list, mesh: PartitionMesh) -> None:
+def _mean_bucket(pieces: list, axis: PartitionMesh, n_ranks: int) -> None:
     bucket = torch.cat(pieces) if len(pieces) > 1 else pieces[0]
-    total = mesh.all_reduce(bucket, op="sum")
-    total.div_(mesh.world_size)
+    total = axis.all_reduce(bucket, op="sum")
+    total.div_(n_ranks)
     off = 0
     for piece in pieces:
         piece.copy_(total[off:off + piece.numel()])
@@ -425,18 +442,27 @@ def recsys_param_specs(model: torch.nn.Module) -> dict:
 
 
 def mesh_sizes(mesh) -> dict:
-    """Axis name -> size, for a ``launch.mesh.HostMesh`` (its ``shape``) or
-    any object with ``axis_names`` and ``devices.shape`` (a JAX mesh, or a
-    stand-in for one)."""
+    """Axis name -> size, for a ``launch.mesh.HostMesh`` or ``MeshLayout``
+    (its ``shape``) or any object with ``axis_names`` and ``devices.shape``
+    (a JAX mesh, or a stand-in for one)."""
     if hasattr(mesh, "devices"):
         return dict(zip(mesh.axis_names, mesh.devices.shape))
     return dict(mesh.shape)
 
 
+def axis_size(sizes: dict, ax) -> int:
+    """The ranks along ``ax`` (an axis name, or a tuple of them as the
+    reference's ``P(("pod", "data"))`` writes the batch axes); an axis the
+    mesh lacks counts 1."""
+    axes = ax if isinstance(ax, tuple) else (ax,)
+    return int(np.prod([int(sizes.get(a, 1)) for a in axes]))
+
+
 def fit_specs(specs: dict, model, mesh) -> dict:
     """The reference's ``_fit_specs``: each spec with the axes whose size
     does not divide their dimension dropped (None), padded with None to
-    the leaf's rank.  ``model`` is a module or a dict name -> full shape."""
+    the leaf's rank.  ``model`` is a module or a dict name -> full shape.
+    An entry may be a tuple of axes (their sizes multiply)."""
     sizes = mesh_sizes(mesh)
     shapes = (dict(model) if isinstance(model, dict)
               else {n: tuple(p.shape) for n, p in model.named_parameters()})
@@ -445,14 +471,22 @@ def fit_specs(specs: dict, model, mesh) -> dict:
         shape = shapes[name]
         fitted = []
         for dim, ax in enumerate(tuple(spec) + (None,) * (len(shape) - len(spec))):
-            keep = ax is not None and shape[dim] % int(sizes.get(ax, 1)) == 0
+            keep = ax is not None and shape[dim] % axis_size(sizes, ax) == 0
             fitted.append(ax if keep else None)
         out[name] = tuple(fitted)
     return out
 
 
-def _axis(mesh, ax: str) -> PartitionMesh:
-    return {"data": mesh.data, "model": mesh.model}[ax]
+def _axis(mesh, ax) -> PartitionMesh:
+    """The ``PartitionMesh`` of ``ax``: ``"pod"``, ``"data"``, ``"model"``, or
+    the batch axes as a tuple (``("pod", "data")``, or ``("data",)``)."""
+    if isinstance(ax, tuple):
+        if len(ax) == 1:
+            return _axis(mesh, ax[0])
+        if tuple(ax) != ("pod", "data"):
+            raise ValueError(f"no mesh axis {ax!r}")
+        return mesh.batch
+    return {"pod": mesh.pod, "data": mesh.data, "model": mesh.model}[ax]
 
 
 def shard_of(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
@@ -535,10 +569,14 @@ class _GatherAlong(torch.autograd.Function):
         return out, None, None, None
 
 
+# Outside grad mode (the serving steps run under ``torch.inference_mode``)
+# each pair is its forward collective alone: no autograd node is made.
+
+
 def copy_to_model(x: torch.Tensor, axis: PartitionMesh | None) -> torch.Tensor:
     """A replicated tensor entering model-split work: identity forward, the
     gradient summed over the model axis backward (each rank's part)."""
-    if axis is None or axis.world_size == 1:
+    if axis is None or axis.world_size == 1 or not torch.is_grad_enabled():
         return x
     return _CopyToModel.apply(x, axis)
 
@@ -548,7 +586,15 @@ def reduce_from_model(x: torch.Tensor, axis: PartitionMesh | None) -> torch.Tens
     model axis forward, the (replicated) gradient passed through backward."""
     if axis is None or axis.world_size == 1:
         return x
+    if not torch.is_grad_enabled():
+        return axis.all_reduce(x, op="sum")
     return _ReduceFromModel.apply(x, axis)
+
+
+def _gather_along(x: torch.Tensor, axis: PartitionMesh, dim: int, scatter: bool):
+    if not torch.is_grad_enabled():
+        return _cat_gathered(axis.all_gather(x.contiguous()), dim)
+    return _GatherAlong.apply(x, axis, dim, scatter)
 
 
 def gather_from_model(x: torch.Tensor, axis: PartitionMesh | None,
@@ -557,7 +603,7 @@ def gather_from_model(x: torch.Tensor, axis: PartitionMesh | None,
     gradient (replicated work downstream) gives back the rank's block."""
     if axis is None or axis.world_size == 1:
         return x
-    return _GatherAlong.apply(x, axis, dim % x.dim(), False)
+    return _gather_along(x, axis, dim % x.dim(), False)
 
 
 def fsdp_gather(w: torch.Tensor, axis: PartitionMesh | None, dim: int) -> torch.Tensor:
@@ -566,7 +612,7 @@ def fsdp_gather(w: torch.Tensor, axis: PartitionMesh | None, dim: int) -> torch.
     sum: ``all_reduce_grads`` divides it by the rank count)."""
     if axis is None or axis.world_size == 1:
         return w
-    return _GatherAlong.apply(w, axis, dim, True)
+    return _gather_along(w, axis, dim, True)
 
 
 # ---------------------------------------------------------------------------

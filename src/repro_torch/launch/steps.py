@@ -25,37 +25,49 @@ for the CPU), its kernels chosen as ``models`` chooses them: on a card the
 segment-sum kernel, and the flash kernel only where no gradient is asked
 for; the serving steps under ``torch.inference_mode()``.
 
-``mesh=`` (``launch.mesh.make_mesh``: a ``(data = D, model = T)`` mesh)
-places a bundle's state by the reference's rule tables
+``mesh=`` (``launch.mesh.make_mesh``: a ``(pod = P, data = D, model =
+T)`` mesh) places a bundle's state by the reference's rule tables
 (``dist.sharding.lm_param_specs`` / ``recsys_param_specs``, fitted to the
 mesh by ``fit_specs``, the reference's ``_fit_specs``): every rank holds
 exactly the shard of each parameter, and of its two AdamW moments, that
 its fitted spec gives it (``dist.sharding.place``), and the models compute
 on those shards as ``models.transformer`` and ``models.recsys`` say:
 tensor-, expert- and vocab-parallel over ``model``, FSDP over ``data`` (the
-LM train kinds whenever D > 1, as the reference's; the prefill drops FSDP
-where the parameters fit 4 GiB a rank on the model axis alone,
-``param_count * 2 / T``).  The batch is split over ``data`` only
-(``shard_batch``: the reference's ``P(dp, None)``; an LM batch D cannot
-split raises, a recsys batch is then replicated, as ``_fit_specs`` leaves
-it) and replicated over ``model``.  A train step takes the local mean
-loss's gradients (FSDP leaves already summed over ``data`` by their
-gathers' reduce-scatter), their mean over the data ranks
-(``dist.sharding.all_reduce_grads``), then AdamW, whose clip reads the
-global norm over every axis that splits a leaf; the loss returned is the
-mean over the data ranks, and an MoE layer's groups and loads are the
+LM train kinds whenever D > 1, as the reference's; the prefill and decode
+drop FSDP where the parameters fit ``SERVE_FSDP_BYTES`` a rank on the model
+axis alone, ``param_count * 2 / T``).  The batch is split over the batch
+axes pod x data, pod-major (``shard_batch``: the reference's ``P(dp,
+None)``; an LM train or prefill batch they cannot split raises, a recsys
+or decode batch is then replicated, as ``_fit_specs`` leaves it) and
+replicated over ``model``.  A train step takes the local mean loss's
+gradients (FSDP leaves already summed over ``data`` by their gathers'
+reduce-scatter), their mean over the batch ranks
+(``dist.sharding.all_reduce_grads``: the FSDP leaves over ``pod`` alone),
+then AdamW, whose clip reads the global norm over every axis that splits a
+leaf (never ``pod``, whose ranks hold replicas); the loss returned is the
+mean over the batch ranks, and an MoE layer's groups and loads are the
 global batch's (``models.moe``), so the router bias moves as on one rank.
-One step on a ``(D, T)`` mesh equals the one-rank step on the same global
-batch up to float reassociation, and the state gathered whole
+One step on a ``(P, D, T)`` mesh equals the one-rank step on the same
+global batch up to float reassociation, and the state gathered whole
 (``launch.train.state_tree``) is the same whichever layout produced it.
-The prefill returns the global batch's next tokens on every rank.  GNN
-train steps and the decode, serve and retrieval kinds on a mesh raise
-(ROADMAP Queue A items 3 and 2).  A one-rank mesh is ``mesh=None``.
+
+The serving kinds on a mesh return the global batch's outputs on every
+rank (the reference's outputs are replicated): the prefill's and decode's
+next tokens, DeepFM's scores (its ids split over the batch axes where they
+divide them, the tables' vocab rows over ``model``), and retrieval's top k
+(the candidates split over the batch axes where they divide them, the
+query ids replicated: each rank's local top k, gathered, merged by a
+stable descending sort, ties to the lower global id, as ``top_k``).  The
+decode state's cache is placed by the reference's ``cache_spec``
+(``models.transformer.cache_spec``: split-KV over ``model``).  GNN train
+steps on a mesh raise (ROADMAP Queue A item 3).  A one-rank mesh is
+``mesh=None``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 import os
 from typing import Callable
 
@@ -70,6 +82,7 @@ from repro_torch.dist.sharding import (
     all_reduce_grads,
     dp_size,
     lm_param_specs,
+    mesh_sizes,
     place,
     placement_of,
     recsys_param_specs,
@@ -82,6 +95,7 @@ from repro_torch.models.recsys import DeepFM, deepfm_logits, deepfm_loss, retrie
 from repro_torch.models.transformer import (
     Transformer,
     _logits,
+    cache_spec,
     gather_logits,
     init_lm_cache,
     lm_decode_step,
@@ -91,6 +105,9 @@ from repro_torch.models.transformer import (
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
 N_CLASSES = 64  # synthetic node-classification width
+#: the serving kinds drop FSDP where the parameters' bfloat16 bytes over the
+#: model axis alone fit this many a rank (the reference's value)
+SERVE_FSDP_BYTES = 4 * 2**30
 
 
 @dataclasses.dataclass
@@ -100,6 +117,9 @@ class StepBundle:
     abstract_inputs: dict  # name -> InputSpec
     init_state_fn: Callable[[int], dict]  # seed -> state on the bundle's device
     input_bounds: dict = dataclasses.field(default_factory=dict)  # int draws
+    #: the step's kind and sizes, as ``launch.dryrun`` reckons them: "kind",
+    #: "batch" (global rows), and "seq", "cache_spec", "candidates", "k"
+    info: dict = dataclasses.field(default_factory=dict)
 
 
 def _generator(device: torch.device, seed: int) -> torch.Generator:
@@ -117,7 +137,8 @@ def _train_step(loss_of: Callable, opt_cfg: AdamWConfig, after: Callable | None 
     place, then ``after(model, aux)`` (outside the gradient path).  On a
     ``mesh`` (of D > 1 data ranks: ``build_bundle`` passes None for one):
     ``shard(batch, mesh)`` first, the gradients averaged over the data
-    ranks before the update, and the loss returned their mean."""
+    ranks before the update, and the loss returned their mean (over the
+    batch axes, pod x data)."""
     dp = mesh is not None
 
     def step(state, batch):
@@ -133,9 +154,10 @@ def _train_step(loss_of: Callable, opt_cfg: AdamWConfig, after: Callable | None 
         if dp:
             # the sum comes before the update: AdamW clips by the global norm
             placed = placement_of(model)
-            grads = all_reduce_grads(grads, dict(named), mesh.data,
-                                     summed=placed.data_split() if placed else frozenset())
-            loss = mesh.data.all_reduce(loss, op="sum") / dp_size(mesh)
+            grads = all_reduce_grads(grads, dict(named), mesh.batch,
+                                     summed=placed.data_split() if placed else frozenset(),
+                                     pod=mesh.pod)
+            loss = mesh.batch.all_reduce(loss, op="sum") / dp_size(mesh)
         gnorm = adamw_update(model, grads, state["opt"], opt_cfg)
         if after is not None:
             with torch.no_grad():
@@ -177,10 +199,7 @@ def _lm_bundle(spec: ArchSpec, shape: LMShape, *, reduced: bool, config,
         shape = LMShape(shape.name, seq_len=32, global_batch=4, kind=shape.kind)
     name = f"{spec.arch_id}:{shape.name}"
 
-    # serving has no optimizer state: where the model axis alone fits 4 GiB a
-    # rank, the prefill drops FSDP (no gathers over data), as the reference
-    tp = 1 if mesh is None else mesh.shape["model"]
-    fsdp = shape.kind == "train" or cfg.param_count() * 2 / tp > 4 * 2**30
+    fsdp = shape.kind == "train" or serving_fsdp(cfg, mesh)
 
     def init_params(seed: int) -> Transformer:
         model = Transformer(cfg, generator=_generator(device, seed), device=device)
@@ -210,6 +229,7 @@ def _lm_bundle(spec: ArchSpec, shape: LMShape, *, reduced: bool, config,
                                                  torch.int32)},
             init_state_fn=_train_init(init_params, opt_cfg),
             input_bounds={"tokens": cfg.vocab},
+            info={"kind": "train", "batch": shape.global_batch, "seq": shape.seq_len},
         )
 
     if shape.kind == "prefill":
@@ -222,8 +242,8 @@ def _lm_bundle(spec: ArchSpec, shape: LMShape, *, reduced: bool, config,
             # axis, the vocab blocks gathered for the argmax)
             logits = gather_logits(model, _logits(model, h[:, -1:], mesh), mesh)
             nxt = logits[:, -1].argmax(dim=-1)
-            if mesh is not None:  # every data rank's rows, in rank order
-                nxt = mesh.data.all_gather(nxt).reshape(-1)
+            if mesh is not None:  # every batch rank's rows, in rank order
+                nxt = mesh.batch.all_gather(nxt).reshape(-1)
             return {"next_token": nxt}
 
         return StepBundle(
@@ -232,27 +252,46 @@ def _lm_bundle(spec: ArchSpec, shape: LMShape, *, reduced: bool, config,
                                                  torch.int32)},
             init_state_fn=lambda seed: {"params": init_params(seed)},
             input_bounds={"tokens": cfg.vocab},
+            info={"kind": "prefill", "batch": shape.global_batch, "seq": shape.seq_len},
         )
 
     # decode: one token against a seq_len KV cache
     b = 2 if reduced else shape.global_batch
     cache_len = 64 if reduced else shape.seq_len
+    c_spec = None if mesh is None else cache_spec(cfg, b, cache_len, mesh)
 
     @torch.inference_mode()
     def decode(state, batch):
-        logits, cache = lm_decode_step(state["params"], state["cache"], batch["tokens"],
-                                       batch["pos"])
+        tokens = batch["tokens"]
+        if mesh is not None:  # the cache's batch split (cache_spec) is the same rule
+            tokens = shard_batch({"tokens": tokens}, mesh, replicate_uneven=True)["tokens"]
+        split = tokens.shape[0] != batch["tokens"].shape[0]
+        logits, cache = lm_decode_step(state["params"], state["cache"], tokens, batch["pos"],
+                                       mesh=mesh, cache_spec=c_spec)
         state = {"params": state["params"], "cache": cache}
-        return state, {"next_token": logits[:, -1].argmax(dim=-1)}
+        nxt = logits[:, -1].argmax(dim=-1)
+        if split:  # every batch rank's rows, in rank order
+            nxt = mesh.batch.all_gather(nxt).reshape(-1)
+        return state, {"next_token": nxt}
 
     return StepBundle(
         name=name, step_fn=decode,
         abstract_inputs={"tokens": InputSpec((b, 1), torch.int32),
                          "pos": InputSpec((), torch.int32)},
         init_state_fn=lambda seed: {"params": init_params(seed),
-                                    "cache": init_lm_cache(cfg, b, cache_len, device=device)},
+                                    "cache": init_lm_cache(cfg, b, cache_len, device=device,
+                                                           mesh=mesh)},
         input_bounds={"tokens": cfg.vocab},
+        info={"kind": "decode", "batch": b, "seq": cache_len, "cache_spec": c_spec},
     )
+
+
+def serving_fsdp(cfg, mesh) -> bool:
+    """Whether a serving bundle keeps FSDP: where the parameters' bfloat16
+    bytes over the model axis alone pass ``SERVE_FSDP_BYTES`` a rank (read
+    at call time), as the reference's ``per_dev <= 4 * 2**30`` rule."""
+    tp = 1 if mesh is None else mesh_sizes(mesh).get("model", 1)
+    return cfg.param_count() * 2 / tp > SERVE_FSDP_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -368,12 +407,31 @@ def _gnn_bundle(spec: ArchSpec, shape: GraphShape, *, reduced: bool, config,
 # ---------------------------------------------------------------------------
 
 
-def _rows_or_replicas(batch: dict, mesh) -> dict:
-    """The reference's recsys batch specs: the rows split over the data
-    ranks where they divide the batch, else the whole batch on every
-    rank."""
-    b = next(iter(batch.values())).shape[0]
-    return shard_batch(batch, mesh) if b % dp_size(mesh) == 0 else batch
+def _global_rows(out: torch.Tensor, n_rows: int, mesh) -> torch.Tensor:
+    """A serving output of the rank's rows -> the global batch's, on every
+    rank (gathered over the batch ranks where they split the batch)."""
+    if mesh is None or out.shape[0] == n_rows:
+        return out
+    every = mesh.batch.all_gather(out)
+    return every.reshape(-1, *out.shape[1:])
+
+
+def retrieval_top_k(scores: torch.Tensor, k: int, mesh=None, offset: int = 0):
+    """The top ``k`` of ``[B, N]`` scores, ties to the lower index
+    (``top_k``); on ``mesh`` the scores are the rank's candidates, global ids
+    ``offset + j``: each rank's top k (global ids), all-gathered over the
+    batch ranks and merged by a stable descending sort over the ranks'
+    lists in rank order, which keeps ties in ascending global id."""
+    vals, idx = top_k(scores, min(k, scores.shape[-1]))
+    if mesh is None or mesh.batch.world_size == 1:
+        return vals, idx
+    idx = idx + offset
+    every_v = mesh.batch.all_gather(vals)  # [D, B, k]
+    every_i = mesh.batch.all_gather(idx)
+    v = torch.cat(list(every_v.unbind(0)), dim=-1)
+    i = torch.cat(list(every_i.unbind(0)), dim=-1)
+    order = torch.sort(v, dim=-1, descending=True, stable=True).indices[..., :k]
+    return torch.take_along_dim(v, order, dim=-1), torch.take_along_dim(i, order, dim=-1)
 
 
 def _recsys_bundle(spec: ArchSpec, shape: RecsysShape, *, reduced: bool, config,
@@ -397,13 +455,14 @@ def _recsys_bundle(spec: ArchSpec, shape: RecsysShape, *, reduced: bool, config,
 
         return StepBundle(
             name=name, step_fn=_train_step(loss_of, opt_cfg, mesh=mesh,
-                                           shard=_rows_or_replicas),
+                                           shard=partial(shard_batch, replicate_uneven=True)),
             abstract_inputs={
                 "ids": InputSpec((b, cfg.n_sparse, cfg.multi_hot), torch.int32),
                 "labels": InputSpec((b,), torch.float32),
             },
             init_state_fn=_train_init(init_model, opt_cfg),
             input_bounds={"ids": cfg.vocab_per_field},
+            info={"kind": "train", "batch": b},
         )
 
     if shape.kind == "retrieval":
@@ -412,8 +471,14 @@ def _recsys_bundle(spec: ArchSpec, shape: RecsysShape, *, reduced: bool, config,
 
         @torch.inference_mode()
         def retrieval(state, batch):
-            scores = retrieval_scores(state["params"], batch["ids"], batch["candidates"])
-            top_scores, top_ids = top_k(scores, k)
+            cands = batch["candidates"]
+            if mesh is not None:  # P(dp, None) where the ranks divide them
+                cands = shard_batch({"c": cands}, mesh, replicate_uneven=True)["c"]
+            split = cands.shape[0] != batch["candidates"].shape[0]
+            scores = retrieval_scores(state["params"], batch["ids"], cands, mesh)
+            top_scores, top_ids = retrieval_top_k(
+                scores, k, mesh if split else None,
+                mesh.batch.rank * cands.shape[0] if split else 0)
             return {"top_scores": top_scores, "top_ids": top_ids}
 
         return StepBundle(
@@ -424,17 +489,22 @@ def _recsys_bundle(spec: ArchSpec, shape: RecsysShape, *, reduced: bool, config,
             },
             init_state_fn=init_state,
             input_bounds={"ids": cfg.vocab_per_field},
+            info={"kind": "retrieval", "batch": b, "candidates": n_cand, "k": k},
         )
 
     @torch.inference_mode()
     def serve(state, batch):
-        return {"scores": torch.sigmoid(deepfm_logits(state["params"], batch["ids"]))}
+        ids = batch["ids"] if mesh is None else shard_batch(batch, mesh,
+                                                            replicate_uneven=True)["ids"]
+        scores = torch.sigmoid(deepfm_logits(state["params"], ids, mesh))
+        return {"scores": _global_rows(scores, batch["ids"].shape[0], mesh)}
 
     return StepBundle(
         name=name, step_fn=serve,
         abstract_inputs={"ids": InputSpec((b, cfg.n_sparse, cfg.multi_hot), torch.int32)},
         init_state_fn=init_state,
         input_bounds={"ids": cfg.vocab_per_field},
+        info={"kind": "serve", "batch": b},
     )
 
 
@@ -462,15 +532,10 @@ def build_bundle(arch_id: str, shape_name: str, *, reduced: bool = False, config
         if mesh.size == 1:
             mesh = None  # one rank: the one-device step, bit for bit
     device = model_device("cuda" if device is None else device)
-    if mesh is not None:
-        if spec.family == "gnn":
-            raise NotImplementedError(
-                f"{arch_id}: GNN train steps on a {tuple(mesh.shape.values())} mesh "
-                "(edge-sharded aggregates) are not ported yet: ROADMAP Queue A item 3")
-        if shape.kind != "train" and not (spec.family == "lm" and shape.kind == "prefill"):
-            raise NotImplementedError(
-                f"{arch_id}:{shape_name}: {shape.kind} bundles on a mesh are not ported "
-                "yet: ROADMAP Queue A item 2")
+    if mesh is not None and spec.family == "gnn":
+        raise NotImplementedError(
+            f"{arch_id}: GNN train steps on a {tuple(mesh.shape.values())} mesh "
+            "(edge-sharded aggregates) are not ported yet: ROADMAP Queue A item 3")
     kw = dict(reduced=reduced, config=config, device=device)
     if spec.family == "lm":
         return _lm_bundle(spec, shape, mesh=mesh, **kw)

@@ -45,6 +45,26 @@ before the norm (``gather_from_model``).  FSDP shards are gathered over the
 data axis where a layer reads them (``dist.sharding.weights``).  A layer
 whose heads the model axis cannot split evenly, or whose spec
 ``fit_specs`` left whole, computes with its weights gathered whole.
+
+Decode on a mesh (``time_split``: the cache's time axis split over
+``model``, the reference's split-KV ``cache_spec``; each rank holds the
+``T/t`` slots ``[r*T/t, (r+1)*T/t)`` of every head).  The rank computes its
+heads' projections of the new token (column-parallel, as the prefill) and
+gathers them over the model axis; the rank that owns the written slot
+(``pos mod T``, the ring's clamp kept) writes it, the others write nothing;
+each rank attends every head over its own slots, masked by the reference's
+logical-position rule on global slot indices, and returns a float32
+partial ``(max, sum of exponentials, unnormalised output)`` (a rank with
+no valid slot yet returns zero weight: its probabilities are masked, not
+only its scores).  The partials are all-gathered over ``model`` and merged
+by the log-sum-exp rule in rank order, the same bits on every rank; the
+rank's heads then go through the row-parallel ``wo``, summed over the
+axis.  MLA does the same on its latents (``q_abs`` and ``q_rope``
+gathered, ``c`` and ``k_rope`` split in time, the merge before ``w_uv``).
+Where the time axis is whole (``REPRO_NO_SPLITKV``, or ``fit_specs``
+dropped it), every rank holds the whole cache, writes every head's new
+entry, and attends its own heads over it.  Decode attention stays plain
+PyTorch, as the reference's, split or not.
 """
 
 from __future__ import annotations
@@ -255,30 +275,118 @@ def init_gqa_cache(cfg: LMConfig, batch: int, cache_len: int, dtype=torch.bfloat
     return _zeros_cache(cache_shapes(cfg, batch, cache_len), dtype, device)
 
 
-def gqa_decode(p: GQAAttention, cfg: LMConfig, x: torch.Tensor, cache: dict, pos):
+def _ring_valid(cfg: LMConfig, pos: int, slot: int, t: int, idx: torch.Tensor) -> torch.Tensor:
+    """The reference's valid cache entries: global slot indices ``idx`` of a
+    ``t``-slot cache whose newest entry, at logical position ``pos``, lies
+    in ``slot``: logical positions ``(pos - t, pos]`` (and inside the
+    window)."""
+    logical = torch.where(idx <= slot, pos - slot + idx, pos - slot - t + idx)
+    valid = (logical >= 0) & (logical <= pos)
+    if cfg.sliding_window is not None:
+        valid &= logical > pos - cfg.sliding_window
+    return valid
+
+
+def _time_axis(mesh, time_split: bool):
+    """The model axis where the cache's time axis is split over it."""
+    if not time_split or mesh is None or mesh.model.world_size == 1:
+        return None
+    return mesh.model
+
+
+def _gather_heads(axis, parts: list) -> list:
+    """Each of ``parts`` (``[B, s, n/T, ...]``, the rank's heads) with every
+    rank's heads, laid end to end in rank order: one all-gather."""
+    every = axis.all_gather(torch.cat(parts, dim=2))  # [T, B, s, sum n/T, ...]
+    chunks = every.split([t.shape[2] for t in parts], dim=3)
+    return [torch.cat(list(c.unbind(0)), dim=2) for c in chunks]
+
+
+def _owned_write(cache: dict, new: dict, start: int, axis, t_loc: int) -> None:
+    """Write ``new`` (name -> ``[B, s, ...]``) at global slot ``start`` of a
+    cache split in time over ``axis`` (``t_loc`` slots a rank): only the
+    rank that owns the slot writes; no collective."""
+    owner = start // t_loc
+    if owner == axis.rank:
+        at = start - owner * t_loc
+        for name, v in new.items():
+            cache[name][:, at:at + v.shape[1]] = v
+
+
+def _partial(scores: torch.Tensor, mask: torch.Tensor):
+    """Float32 scores ``[..., T]`` and their mask -> ``(max, unnormalised
+    probabilities, their sum)``; a masked entry gets probability 0, so a
+    rank with no valid slot adds no weight."""
+    scores = torch.where(mask, scores, _NEG)
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None]) * mask
+    return m, p, p.sum(dim=-1)
+
+
+def _merge_partials(axis, m: torch.Tensor, l: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """Every model rank's partial ``(m [...], l [...], o [..., e])`` merged
+    by the log-sum-exp rule: one all-gather, then the ranks' terms added in
+    rank order (the same bits on every rank) -> ``o / l`` in float32."""
+    every = axis.all_gather(torch.cat([m[..., None], l[..., None], o], dim=-1))
+    ms, ls, os_ = every[..., 0], every[..., 1], every[..., 2:]
+    w = torch.exp(ms - ms.amax(dim=0))  # a rank with no valid slot: exp(-1e30) = 0
+    num, den = os_[0] * w[0][..., None], ls[0] * w[0]
+    for j in range(1, every.shape[0]):
+        num = num + os_[j] * w[j][..., None]
+        den = den + ls[j] * w[j]
+    return num / den[..., None]
+
+
+def _rank_heads(t: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """The model rank's block of heads of ``t`` along ``dim`` (all of them
+    off a split)."""
+    return t if axis is None else t.tensor_split(axis.world_size, dim=dim)[axis.rank]
+
+
+def gqa_decode(p: GQAAttention, cfg: LMConfig, x: torch.Tensor, cache: dict, pos, *,
+               mesh=None, time_split: bool = False):
     """x [B,1,D], cache {k, v [B,T,Hk,dh]}, pos an int -> (out, cache), the
     cache written in place.
 
     Under a sliding window the cache is a ring buffer of the window's size:
     writes and reads wrap modulo its length, and entries are masked by
-    their logical position."""
+    their logical position.  On ``mesh`` (see the module docstring) the
+    rank's heads, and with ``time_split`` the rank's slots of a cache split
+    in time over the model axis."""
     b, s, _ = x.shape
-    h, dh = cfg.n_heads, cfg.d_head
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     pos = int(pos)
-    t = cache["k"].shape[1]
-    q, k, v = gqa_qkv(p, cfg, x, torch.full((b, 1), pos, device=x.device))
+    axis = _heads_axis(p, _GQA, (h, hk), mesh)
+    w = weights(p, mesh, _GQA, local=axis is not None)
+    tm = _time_axis(mesh, time_split)
+    t_loc = cache["k"].shape[1]
+    t = t_loc * (1 if tm is None else tm.world_size)
+    q, k, v = gqa_qkv(w, cfg, x, torch.full((b, 1), pos, device=x.device))
+    if axis is not None:  # every head's new k and v (and q, to attend every head)
+        if tm is None:
+            k, v = _gather_heads(axis, [k, v])
+        else:
+            q, k, v = _gather_heads(axis, [q, k, v])
     slot = pos % t  # ring write (no-op mod for full-length caches)
     start = min(slot, t - s)  # dynamic_update_slice's clamp
-    cache["k"][:, start:start + s] = k
-    cache["v"][:, start:start + s] = v
-    # valid cache entries: logical positions (pos - t, pos]
-    idx = torch.arange(t, device=x.device)
-    logical = torch.where(idx <= slot, pos - slot + idx, pos - slot - t + idx)
-    valid = (logical >= 0) & (logical <= pos)
-    if cfg.sliding_window is not None:
-        valid &= logical > pos - cfg.sliding_window
-    out = _sdpa(q, cache["k"], cache["v"], valid[None, None, :], _scale(dh))
-    return out.reshape(b, s, h * dh) @ p.wo, cache
+    if tm is None:
+        cache["k"][:, start:start + s] = k
+        cache["v"][:, start:start + s] = v
+        valid = _ring_valid(cfg, pos, slot, t, torch.arange(t, device=x.device))
+        out = _sdpa(q, _rank_heads(cache["k"], axis, 2), _rank_heads(cache["v"], axis, 2),
+                    valid[None, None, :], _scale(dh))
+    else:
+        _owned_write(cache, {"k": k, "v": v}, start, tm, t_loc)
+        valid = _ring_valid(cfg, pos, slot, t,
+                            tm.rank * t_loc + torch.arange(t_loc, device=x.device))
+        qr = q.reshape(b, s, hk, h // hk, dh)
+        scores = torch.einsum("bskgd,btkd->bkgst", qr, cache["k"]).to(torch.float32) * _scale(dh)
+        m, pr, l = _partial(scores, valid)
+        o = torch.einsum("bkgst,btkd->bkgsd", pr.to(cache["v"].dtype), cache["v"]).float()
+        out = _merge_partials(tm, m, l, o)  # [B, Hk, G, s, dh]
+        out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(x.dtype)
+        out = _rank_heads(out, axis, 2)
+    return reduce_from_model(out.reshape(b, s, -1) @ w.wo, axis), cache
 
 
 # ---------------------------------------------------------------------------
@@ -413,38 +521,60 @@ def init_mla_cache(cfg: LMConfig, batch: int, cache_len: int, dtype=torch.bfloat
     return _zeros_cache(cache_shapes(cfg, batch, cache_len), dtype, device)
 
 
-def mla_decode(p: MLAAttention, cfg: LMConfig, x: torch.Tensor, cache: dict, pos):
+def mla_decode(p: MLAAttention, cfg: LMConfig, x: torch.Tensor, cache: dict, pos, *,
+               mesh=None, time_split: bool = False):
     """Absorbed-weight decode: score against the cached latent directly.
     The latent is written in place at ``pos``, which must lie inside the
-    cache (the reference's ``dynamic_update_slice`` would clamp it)."""
+    cache (the reference's ``dynamic_update_slice`` would clamp it).  On
+    ``mesh`` (see the module docstring) the rank's heads, and with
+    ``time_split`` the rank's slots of a latent cache split in time."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
     pos = int(pos)
-    t = cache["c"].shape[1]
+    axis = _heads_axis(p, _MLA_HEADS, (cfg.n_heads,), mesh)
+    w = weights(p, mesh, _MLA_HEADS, local=axis is not None)
+    vars(w).update(vars(weights(p, mesh, _MLA_REST, local=True)))
+    lat_q = mesh.model if model_split(p, ("w_dq",), mesh) else None
+    lat_kv = mesh.model if model_split(p, ("w_dkv",), mesh) else None
+    tm = _time_axis(mesh, time_split)
+    t_loc = cache["c"].shape[1]
+    t = t_loc * (1 if tm is None else tm.world_size)
     if not 0 <= pos <= t - s:
         raise ValueError(f"mla_decode: position {pos} outside a cache of {t}")
+    h = w.w_uk.shape[1] // m.qk_nope_dim  # the rank's heads
     positions = torch.full((b, 1), pos, device=x.device)
-    q_nope, q_rope = _mla_q(p, cfg, x, positions)
-    c_new, k_rope_new = _mla_latent(p, cfg, x, positions)
-    cache["c"][:, pos:pos + s] = c_new
-    cache["k_rope"][:, pos:pos + s] = k_rope_new
-    c, k_rope = cache["c"], cache["k_rope"]
+    q_nope, q_rope = _mla_q(w, cfg, x, positions, axis, lat_q)
+    c_new, k_rope_new = _mla_latent(w, cfg, x, positions, axis, lat_kv)
 
     # absorb W_uk into the query: q_abs [B,1,H,R]
-    w_uk = p.w_uk.reshape(m.kv_lora_rank, h, m.qk_nope_dim)
+    w_uk = w.w_uk.reshape(m.kv_lora_rank, h, m.qk_nope_dim)
     q_abs = torch.einsum("bshe,rhe->bshr", q_nope, w_uk)
     scale = _scale(m.qk_nope_dim + m.qk_rope_dim)
+    if tm is None:
+        cache["c"][:, pos:pos + s] = c_new
+        cache["k_rope"][:, pos:pos + s] = k_rope_new
+        idx = torch.arange(t, device=x.device)
+    else:
+        if axis is not None:  # every head's absorbed query
+            (q,) = _gather_heads(axis, [torch.cat([q_abs, q_rope], dim=-1)])
+            q_abs, q_rope = q.split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+        _owned_write(cache, {"c": c_new, "k_rope": k_rope_new}, pos, tm, t_loc)
+        idx = tm.rank * t_loc + torch.arange(t_loc, device=x.device)
+    c, k_rope = cache["c"], cache["k_rope"]
     scores = (
         torch.einsum("bshr,btr->bhst", q_abs, c)
         + torch.einsum("bshe,bte->bhst", q_rope, k_rope)
     ).to(torch.float32) * scale
-    mask = (torch.arange(t, device=x.device) <= pos)[None, None, None, :]
-    scores = scores + torch.where(mask, 0.0, _NEG)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    # attend over the latent, then absorb W_uv on the way out
-    o_lat = torch.einsum("bhst,btr->bshr", probs, c)
-    w_uv = p.w_uv.reshape(m.kv_lora_rank, h, m.v_head_dim)
+    if tm is None:
+        scores = scores + torch.where((idx <= pos)[None, None, None, :], 0.0, _NEG)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        # attend over the latent, then absorb W_uv on the way out
+        o_lat = torch.einsum("bhst,btr->bshr", probs, c)
+    else:
+        mx, pr, l = _partial(scores, idx <= pos)
+        o = torch.einsum("bhst,btr->bhsr", pr.to(c.dtype), c).float()
+        o_lat = _merge_partials(tm, mx, l, o).permute(0, 2, 1, 3).to(x.dtype)  # [B,s,H,R]
+        o_lat = _rank_heads(o_lat, axis, 2)
+    w_uv = w.w_uv.reshape(m.kv_lora_rank, h, m.v_head_dim)
     out = torch.einsum("bshr,rhe->bshe", o_lat, w_uv).reshape(b, s, h * m.v_head_dim)
-    return out @ p.wo, cache
-
+    return reduce_from_model(out @ w.wo, axis), cache

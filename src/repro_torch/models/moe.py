@@ -20,16 +20,18 @@ reads its slot's weighted output (nothing if dropped), and a token's k
 terms are added in ascending slot order, the order of the reference's
 scatter-add, so two calls give the same bits on any device.
 
-Data-parallel ranks (``mesh=``, a mesh whose data axes span D > 1 ranks)
-run the global batch's dispatch groups: the reference's ``_n_groups`` sees
-the global token count (GSPMD shards the groups over the batch axes, not
-the tokens), so a rank holding T tokens runs ``G / D`` of the ``G =
-_n_groups(T * D)`` groups -- its own rows' groups, at the global group size
-and capacity -- and the drops, the aux loss's groups and the loads are the
-one-rank run's.  ``moe_ffn_groups`` returns the rank's per-group
-densities; ``expert_loads`` gathers every rank's and sums all G groups in
-global order, so the load (and the router bias it moves) equals the
-one-rank load bit for bit.
+Data-parallel ranks (``mesh=``, a mesh whose batch axes, pod x data, span
+D > 1 ranks) run the global batch's dispatch groups: the reference's
+``_n_groups`` sees the global token count (GSPMD shards the groups over the
+batch axes, not the tokens), so a rank holding T tokens runs ``G / D`` of
+the ``G = _n_groups(T * D)`` groups -- its own rows' groups, at the global
+group size and capacity -- and the drops, the aux loss's groups and the
+loads are the one-rank run's.  ``moe_ffn_groups`` returns the rank's
+per-group densities; ``expert_loads`` gathers every rank's over the batch
+axes and sums all G groups in global order, so the load (and the router
+bias it moves) equals the one-rank load bit for bit.  Where the batch is
+replicated over the batch ranks (a decode batch they cannot split,
+``replicated=True``), every rank runs all the groups of its tokens.
 
 On a ``model`` axis of T ranks (the module placed by
 ``dist.sharding.place``: the reference's ``constrain`` calls pin the
@@ -109,7 +111,7 @@ def _n_groups(t: int) -> int:
 
 def dispatch_groups(t: int, mesh=None) -> int:
     """The dispatch groups of a rank holding ``t`` of the global batch's
-    tokens: ``_n_groups`` of the global count, split evenly over the data
+    tokens: ``_n_groups`` of the global count, split evenly over the batch
     ranks (a group straddling two ranks raises)."""
     d = 1 if mesh is None else dp_size(mesh)
     g = _n_groups(t * d)
@@ -153,12 +155,13 @@ class Routing(NamedTuple):
             self.g * self.t_loc, -1)
 
 
-def route(p: MoE, cfg: MoEConfig, x: torch.Tensor, mesh=None) -> Routing:
+def route(p: MoE, cfg: MoEConfig, x: torch.Tensor, mesh=None, *,
+          replicated: bool = False) -> Routing:
     """Top-k routing and the capacity drop rule for x [T, D] (this rank's
-    tokens under ``mesh``)."""
+    tokens under ``mesh``; all of them where ``replicated``)."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    g = dispatch_groups(t, mesh)
+    g = dispatch_groups(t, None if replicated else mesh)
     t_loc = t // g
     cap = _capacity(t_loc, cfg)
     dev = x.device
@@ -189,18 +192,20 @@ def moe_ffn(p: MoE, cfg: MoEConfig, x: torch.Tensor):
     return y, aux, expert_loads(density)
 
 
-def moe_ffn_groups(p: MoE, cfg: MoEConfig, x: torch.Tensor, *, mesh=None):
+def moe_ffn_groups(p: MoE, cfg: MoEConfig, x: torch.Tensor, *, mesh=None,
+                   replicated: bool = False):
     """x [T, D] -> (y [T, D], aux_loss scalar, the dispatch groups' expert
     densities [G, E], detached; ``expert_loads`` makes them the load).
-    Under a ``mesh``, x is this data rank's tokens, and the aux loss and the
-    densities are its G/D groups'."""
+    Under a ``mesh``, x is this batch rank's tokens, and the aux loss and the
+    densities are its G/D groups' (or, ``replicated``, x is the whole batch
+    on every batch rank, and its groups all of them)."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     axis = mesh.model if model_split(p, _EXPERTS, mesh) else None
     w = weights(p, mesh, ("router",) + _EXPERTS, local=axis is not None)
     if hasattr(p, "router_bias"):
         w.router_bias = p.router_bias
-    r = route(w, cfg, x, mesh)
+    r = route(w, cfg, x, mesh, replicated=replicated)
     g, t_loc, cap = r.g, r.t_loc, r.cap
     dev = x.device
 
@@ -266,10 +271,10 @@ def expert_loads(densities: torch.Tensor, mesh=None) -> torch.Tensor:
     """Group densities ``[..., G, E]`` (stacked over layers, say) -> the load
     fraction ``[..., E]``: the groups summed in order, times float32(1/G),
     which is how jnp.mean rounds, so equal routing gives equal bits.  Under
-    a ``mesh`` each data rank holds ``G/D`` groups: one all-gather along the
-    data axis puts all G in global order first, as one rank sums them."""
+    a ``mesh`` each batch rank holds ``G/D`` groups: one all-gather along the
+    batch axes puts all G in global order first, as one rank sums them."""
     if mesh is not None:
-        every = mesh.data.all_gather(densities)  # [D, ..., G/D, E]
+        every = mesh.batch.all_gather(densities)  # [D, ..., G/D, E]
         every = torch.movedim(every, 0, -3)
         densities = every.reshape(*every.shape[:-3], -1, every.shape[-1])
     g = densities.shape[-2]

@@ -4,7 +4,8 @@ embeddings; the logits are the sum of both plus the first-order terms.
 
 On a mesh (``mesh=``, the module placed by ``dist.sharding.place``) the
 tables' and first-order terms' vocab rows are split over the ``model``
-axis.
+axis, and every bag (serving's, and retrieval's query tower) is summed
+over it.
 
 The FM second-order term uses the sum-square identity
   sum_{i<j} <v_i, v_j> = 1/2 * ((sum v_i)^2 - sum v_i^2)
@@ -73,9 +74,12 @@ def deepfm_loss(model: DeepFM, ids: torch.Tensor, labels: torch.Tensor,
 
 
 def retrieval_scores(model: DeepFM, query_ids: torch.Tensor,
-                     cand_embeddings: torch.Tensor) -> torch.Tensor:
+                     cand_embeddings: torch.Tensor, mesh=None) -> torch.Tensor:
     """Score each query against N candidate item embeddings by a batched dot
     (the ``retrieval_cand`` shape): the query tower is the mean field
-    embedding.  -> ``[B, N]``."""
-    q = embedding_bag(model.tables, query_ids).mean(dim=1)  # [B, D]
+    embedding (on ``mesh``'s model axis its bags summed over the ranks'
+    vocab rows, as ``deepfm_logits``'), and the candidates are whichever
+    rows the caller passes (a rank's slice).  -> ``[B, N]``."""
+    q = embedding_bag(model.tables, query_ids,
+                      axis=_vocab_axis(model, "tables", mesh)).mean(dim=1)  # [B, D]
     return torch.einsum("bd,nd->bn", q, cand_embeddings)

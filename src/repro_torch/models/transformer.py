@@ -34,9 +34,21 @@ exponentials all-reduced, the target logit from the rank that owns it).
 FSDP shards are gathered over the data axis where a layer reads them, and
 their gradients reduce-scattered back.  A layer whose spec ``fit_specs``
 left whole takes the replicated path.  None, the default, is one rank.
+
+Decode on a mesh (``lm_decode_step(..., mesh=, cache_spec=)``): the cache
+is placed by the reference's ``cache_spec`` (``[L, B, T, ...]``: the batch
+over the batch axes where they divide it, the time axis over ``model``
+unless ``REPRO_NO_SPLITKV`` is set, fitted by ``fit_specs``;
+``init_lm_cache(..., mesh=)`` allocates the rank's shard alone); the step
+takes the rank's rows of the tokens (replicated over ``model``) through
+the vocab-parallel lookup, each layer's split-KV attention
+(``models.attention``), the tensor- and expert-parallel MLP and MoE, and
+the vocab-parallel logits, gathered whole for the argmax.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 from torch import nn
@@ -44,7 +56,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.dist.sharding import (
+    axis_size,
     copy_to_model,
+    dp_axes,
+    fit_specs,
+    mesh_sizes,
     gather_from_model,
     gathered_matmul,
     model_split,
@@ -59,7 +75,7 @@ from repro_torch.models.common import (
     rms_norm,
     swiglu,
 )
-from repro_torch.models.moe import MoE, expert_loads, moe_ffn, moe_ffn_groups
+from repro_torch.models.moe import MoE, expert_loads, moe_ffn_groups
 
 
 def _ones(d: int, dtype, generator) -> nn.Parameter:
@@ -276,12 +292,33 @@ def lm_loss(model: Transformer, tokens: torch.Tensor, *, backend: str | None = N
 # ---------------------------------------------------------------------------
 
 
-def init_lm_cache(cfg: LMConfig, batch: int, cache_len: int, dtype=torch.bfloat16,
-                  device="cuda") -> dict:
-    """Per-stack caches with a leading layer axis (``[L, B, T, ...]``, the
-    reference's layout).  SWA archs get ring buffers of the window's size."""
+def cache_spec(cfg: LMConfig, batch: int, cache_len: int, mesh) -> tuple:
+    """The reference's decode ``cache_spec`` for ``[L, B, T, ...]`` leaves,
+    fitted to ``mesh`` (a ``HostMesh`` or a ``MeshLayout``): ``(None, the
+    batch axes where they divide B else None, "model" where it divides the
+    cache's T and ``REPRO_NO_SPLITKV`` is unset, else None)``; the trailing
+    dims are whole."""
     if cfg.sliding_window is not None:
         cache_len = min(cache_len, cfg.sliding_window)
+    sizes = mesh_sizes(mesh)
+    dp = dp_axes(mesh)
+    t_axis = None if os.environ.get("REPRO_NO_SPLITKV") else "model"
+    spec = (None, dp if batch % axis_size(sizes, dp) == 0 else None, t_axis)
+    return fit_specs({"c": spec}, {"c": (1, batch, cache_len)}, mesh)["c"]
+
+
+def init_lm_cache(cfg: LMConfig, batch: int, cache_len: int, dtype=torch.bfloat16,
+                  device="cuda", *, mesh=None) -> dict:
+    """Per-stack caches with a leading layer axis (``[L, B, T, ...]``, the
+    reference's layout).  SWA archs get ring buffers of the window's size.
+    On ``mesh``, the rank's shard of each under ``cache_spec``."""
+    if cfg.sliding_window is not None:
+        cache_len = min(cache_len, cfg.sliding_window)
+    if mesh is not None:
+        sizes = mesh_sizes(mesh)
+        _, b_ax, t_ax = cache_spec(cfg, batch, cache_len, mesh)
+        batch //= axis_size(sizes, b_ax) if b_ax else 1
+        cache_len //= axis_size(sizes, t_ax) if t_ax else 1
     one = attn.cache_shapes(cfg, batch, cache_len)
     n_dense = cfg.first_k_dense if cfg.moe else cfg.n_layers
     return {
@@ -291,23 +328,30 @@ def init_lm_cache(cfg: LMConfig, batch: int, cache_len: int, dtype=torch.bfloat1
     }
 
 
-def lm_decode_step(model: Transformer, cache: dict, tokens: torch.Tensor, pos):
+def lm_decode_step(model: Transformer, cache: dict, tokens: torch.Tensor, pos, *,
+                   mesh=None, cache_spec: tuple | None = None):
     """One decode step: tokens [B,1], pos an int -> (logits [B,1,V], cache),
-    the cache written in place."""
+    the cache written in place.  On ``mesh``: ``tokens`` are the rank's
+    rows where ``cache_spec`` splits the batch (else the whole batch), the
+    cache the rank's shard under ``cache_spec`` (None: batch and time
+    whole), and the logits the rank's rows over the whole vocab."""
     cfg = model.cfg
     dec = attn.mla_decode if cfg.mla else attn.gqa_decode
-    x = model.embed[tokens]
+    split = cache_spec is not None and cache_spec[2] is not None
+    replicated = mesh is not None and (cache_spec is None or cache_spec[1] is None)
+    x = embed_tokens(model, tokens, mesh)
     for key, layers, is_moe in model.stacks():
         for i, layer in enumerate(layers):
             lcache = {name: t[i] for name, t in cache[key].items()}
-            a, _ = dec(layer.attn, cfg, rms_norm(x, layer.attn_norm), lcache, pos)
+            a, _ = dec(layer.attn, cfg, rms_norm(x, layer.attn_norm), lcache, pos, mesh=mesh,
+                       time_split=split)
             h = x + a
             hn = rms_norm(h, layer.ffn_norm)
             if is_moe:
                 b, s, d = hn.shape
-                y, _, _ = moe_ffn(layer.moe, cfg.moe, hn.reshape(b * s, d))
+                y, _, _ = moe_ffn_groups(layer.moe, cfg.moe, hn.reshape(b * s, d), mesh=mesh,
+                                         replicated=replicated)
                 x = h + y.reshape(b, s, d)
             else:
-                m = layer.mlp
-                x = h + swiglu(hn, m.w_gate, m.w_up, m.w_down)
-    return _logits(model, x), cache
+                x = h + mlp_forward(layer.mlp, hn, mesh)
+    return gather_logits(model, _logits(model, x, mesh), mesh), cache

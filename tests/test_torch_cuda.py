@@ -44,7 +44,9 @@ equal to one rank's.  The model axis: a reduced LM's float32 prefill on a
 ``(1, 2)`` mesh, each rank on its own heads, launches the flash kernel
 once a layer on every rank; its next tokens equal one rank's and its
 last-position logits lie within ``tests/test_torch_tp.py``'s ``1e-5`` of
-their rms.
+their rms.  Split-KV decode: a reduced LM's float32 decode on a ``(1, 2)``
+mesh, half the cache's slots a rank, within ``tests/test_torch_dryrun.py``'s
+``2e-5`` of one rank's logits' rms; a merge without its rescale must fail it.
 """
 
 import dataclasses
@@ -1110,3 +1112,79 @@ def test_model_axis_prefill_runs_the_flash_kernel_on_every_rank(cuda_device, arc
         assert 2 * r["heads"] == one["heads"]
         assert torch.equal(r["next_token"], one["next_token"])
         assert float((r["logits"] - one["logits"]).abs().max()) <= bound
+
+
+# -- split-KV decode on the card ------------------------------------------------------
+
+#: the (1, 2) decode's logits against one rank's, of their rms (tests/test_torch_dryrun.py)
+TP_DECODE_SHARE = 2e-5
+TP_DECODE_STEPS, TP_DECODE_START = 6, 28
+
+
+def _merge_without_rescale(axis, m, l, o):
+    every = axis.all_gather(torch.cat([m[..., None], l[..., None], o], dim=-1))
+    return every[..., 2:].sum(dim=0) / every[..., 1].sum(dim=0)[..., None]
+
+
+def _decode_card(arch: str, mesh=None, control: bool = False) -> dict:
+    """A reduced LM's decode in float32 on the card from a seeded cache of
+    the reduced bundle's size (on ``mesh``: the rank's heads and its half
+    of the slots), teacher-forced: each step's logits, whole vocab; the
+    control merges the split-KV partials without their ``exp(m_j - M)``
+    rescale (positions 28-33: the second rank's slots fill from 32)."""
+    from repro_torch.dist.sharding import shard_of
+    from repro_torch.launch import steps
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import cache_spec, init_lm_cache, lm_decode_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = steps.build_bundle(arch, "prefill_32k", reduced=True, device="cuda",
+                               mesh=mesh).init_state_fn(0)["params"].to(torch.float32)
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cache = init_lm_cache(cfg, 2, 64, torch.float32, "cuda")
+    for leaves in cache.values():
+        for t in leaves.values():
+            t.normal_(generator=gen)
+    tokens = torch.randint(0, cfg.vocab, (2, TP_DECODE_STEPS), generator=gen, device="cuda")
+    spec = None
+    if mesh is not None:
+        spec = cache_spec(cfg, 2, 64, mesh)
+        cache = {k: {n: shard_of(t, tuple(spec) + (None,) * (t.dim() - 3), mesh).clone()
+                     for n, t in v.items()} for k, v in cache.items()}
+    real = attention._merge_partials
+    attention._merge_partials = _merge_without_rescale if control else real
+    logits = []
+    try:
+        with torch.inference_mode():
+            for i in range(TP_DECODE_STEPS):
+                lg, cache = lm_decode_step(model, cache, tokens[:, i:i + 1], TP_DECODE_START + i,
+                                           mesh=mesh, cache_spec=spec)
+                logits.append(lg[:, -1].float().cpu())
+    finally:
+        attention._merge_partials = real
+    return {"logits": torch.stack(logits)}
+
+
+def _decode_card_rank(arch: str) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(data=1, model=2)
+    return {"main": _decode_card(arch, mesh), "control": _decode_card(arch, mesh, control=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v3-671b"])
+def test_split_kv_decode_on_two_ranks_matches_one_rank(cuda_device, arch):
+    """Two ranks (gloo on one card, or NCCL on two) as a ``(1, 2)`` mesh,
+    each holding half the cache's slots: each step's logits within
+    ``TP_DECODE_SHARE`` of one rank's rms; with the partials merged without
+    their rescale they fall outside it."""
+    from repro_torch.dist import run_ranks
+
+    ranks = run_ranks(_decode_card_rank, 2, device="cuda", timeout=600, args=(arch,))
+    one = _decode_card(arch)["logits"]
+    bound = TP_DECODE_SHARE * float(one.square().mean().sqrt())
+    for r in ranks:
+        assert float((r["main"]["logits"] - one).abs().max()) <= bound
+        assert float((r["control"]["logits"] - one).abs().max()) > bound

@@ -38,7 +38,7 @@ Bounds:
     (``launch.train.state_tree``), bit for bit; DeepSeek-V3's router biases
     equal to the one-rank run's; the collectives of each step, calls and
     bytes: for DeepFM, the count the buckets give plus the loss's sum; for
-    an LM, ``test_torch_tp.derived_collectives`` (the FSDP gathers and
+    an LM, ``launch.dryrun.derived_collectives`` (the FSDP gathers and
     reduce-scatters, one bucket of the leaves the data axis leaves whole,
     the loss, the global norm, and one loads gather for an MoE model).
 """
@@ -72,6 +72,7 @@ from repro_torch.dist.sharding import (
     lm_param_specs,
 )
 from repro_torch.launch import train as train_mod
+from repro_torch.launch.dryrun import derived_collectives
 from repro_torch.launch.mesh import HostMesh, make_host_mesh
 from repro_torch.launch.train import restore_state, state_digests, state_tree, train
 
@@ -349,16 +350,17 @@ def test_collectives_per_step_equal_the_derived_count(runs, name, d):
     bucket (the gradients of one dtype end to end, cut every
     ``BUCKET_BYTES``) and one for the loss.  An LM (FSDP over the data
     axis): the count derived from its specs (``derived_collectives``)."""
-    from test_torch_tp import derived_collectives  # the parent's path only: ranks load this file
-
     out, launches = runs
     cfg = _config(name)
     if _family(name) == "lm":
         got = launches[d][0][name, MAIN]
         with _variant(name, MAIN):  # the case's DISPATCH_GROUPS
-            groups = moe.dispatch_groups(4 * 32) if cfg.moe else 0
-        want = derived_collectives(cfg, "lm", got["specs"], got["shapes"], d, 1,
-                                   groups=groups)
+            groups = moe.dispatch_groups(4 * 32) if cfg.moe else None
+        with _patched(sharding, "GRAD_BUCKET_BYTES", BUCKET_BYTES):  # the ranks' buckets
+            want = derived_collectives(
+                cfg, "train", got["specs"], got["shapes"], {"data": d, "model": 1},
+                batch=4, seq=32, groups=groups,
+                frozen=frozenset(n for n in got["specs"] if n.endswith("router_bias")))
         want_calls, want_bytes = want["calls"]["data"], want["bytes"]["data"]
     else:
         grads = out[name]["grad_bytes"]
@@ -447,8 +449,8 @@ def test_recsys_batch_is_replicated_where_the_ranks_do_not_divide_it():
     """The reference's recsys specs: rows over the data ranks where they
     divide the batch, the whole batch on every rank otherwise."""
     batch = {"ids": torch.arange(8)[:, None, None], "labels": torch.arange(8.0)}
-    assert steps._rows_or_replicas(batch, _fake_mesh(3, 2)) is batch
-    assert torch.equal(steps._rows_or_replicas(batch, _fake_mesh(4, 3))["labels"],
+    assert shard_batch(batch, _fake_mesh(3, 2), replicate_uneven=True) is batch
+    assert torch.equal(shard_batch(batch, _fake_mesh(4, 3), replicate_uneven=True)["labels"],
                        torch.tensor([6.0, 7.0]))
 
 
@@ -462,7 +464,7 @@ def test_dispatch_groups_split_the_global_groups():
 
 @pytest.mark.parametrize("arch, shape, what", [
     ("pna", "full_graph_sm", "item 3"), ("meshgraphnet", "minibatch_lg", "item 3"),
-    ("tinyllama-1.1b", "decode_32k", "item 2"), ("deepfm", "serve_bulk", "item 2"),
+    ("mace", "molecule", "item 3"), ("dimenet", "molecule", "item 3"),
 ])
 def test_bundles_not_on_the_data_axis_raise_on_ranks(arch, shape, what):
     with pytest.raises(NotImplementedError, match=what):
@@ -533,15 +535,15 @@ def test_trainer_on_two_ranks_restarts_bit_for_bit_and_onto_one(tmp_path):
     assert len(ref["losses"]) == len(ref["gnorms"]) == 6 and ref["resumed_from"] is None
     # each step's FSDP gathers and its loads gather, then three checkpoints'
     # whole-state gathers (every data-split leaf, and both its moments)
-    from test_torch_tp import derived_collectives
-
     model = steps.build_bundle(*TRAIN, reduced=True, device="cpu").init_state_fn(0)["params"]
     standin = types.SimpleNamespace(axis_names=("data", "model"), devices=np.empty((2, 1)))
     specs = fit_specs(lm_param_specs(model), model, standin)
     local = {n: tuple(s // (2 if ax == "data" else 1) for s, ax in zip(p.shape, specs[n]))
              for n, p in model.named_parameters()}
-    per_step = derived_collectives(model.cfg, "lm", specs, local, 2, 1,
-                                   groups=moe.dispatch_groups(4 * 32), elt=2)
+    per_step = derived_collectives(model.cfg, "train", specs, local, {"data": 2, "model": 1},
+                                   batch=4, seq=32, groups=moe.dispatch_groups(4 * 32),
+                                   elts={n: p.element_size()
+                                         for n, p in model.named_parameters()})
     n_split = sum("data" in spec for spec in specs.values())
     assert ref["stats"]["calls"]["all_gather"] == (
         6 * per_step["calls"]["data"]["all_gather"] + 3 * 3 * n_split)

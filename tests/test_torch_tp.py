@@ -33,8 +33,9 @@ Bounds:
     their fitted spec gives them; the gradients of the leaves the model
     axis leaves whole are bit-equal on every model rank; the collectives of
     each step, calls and bytes per axis, equal a count derived from the
-    specs (``derived_collectives``: weight gathers and reduce-scatters over ``data``,
-    the model axis's sums and gathers, the remat replay); the prefill's
+    specs (``launch.dryrun.derived_collectives``: weight gathers and
+    reduce-scatters over ``data``, the model axis's sums and gathers, the
+    remat replay, each with its bytes); the prefill's
     next tokens; a checkpoint restored across layouts, bit for bit.
 """
 
@@ -61,6 +62,7 @@ from repro_torch.dist.sharding import (
     lm_param_specs,
     recsys_param_specs,
 )
+from repro_torch.launch.dryrun import derived_collectives
 from repro_torch.launch.mesh import HostMesh, make_mesh
 from repro_torch.ckpt import save_pytree
 from repro_torch.launch.train import restore_state, state_digests, state_tree, tensor_digest
@@ -475,103 +477,16 @@ def test_leaves_the_model_axis_leaves_whole_get_bit_equal_gradients(runs, name, 
             assert r[name, MAIN]["grad_digests"][n] == peer[name, MAIN]["grad_digests"][n], n
 
 
-def derived_collectives(cfg, family: str, specs: dict, shapes: dict, d: int, t: int, *,
-                        groups: int = 32, elt: int = 4) -> dict:
-    """The collectives of one step, per axis, from the specs and the model's
-    layers (see ``dist.sharding``, ``models.*``): over ``data`` (D > 1) an
-    all-gather of each FSDP weight where a layer reads it (again in a remat
-    replay) and one reduce-scatter of its gradient, one all-reduce of the
-    leaves ``data`` leaves whole (one bucket of a dtype), the loss, the
-    global norm, and an MoE model's loads; over ``model`` (T > 1) each
-    tensor-parallel block's sum forward and its input's gradient sum
-    backward, the vocab-parallel lookup, logits and loss (max, sum of
-    exponentials, target), the experts' and latents' gathers, and the
-    global norm.  Under remat a layer's forward is replayed up to its last
-    saved tensor: every weight gather and the attention's sum, not the
-    MLP's closing sum.  ``groups``: an MoE layer's dispatch groups over the
-    global batch; ``elt``: the parameters' element bytes."""
-    calls = {"data": {}, "model": {}}
-    nbytes = {"data": {}, "model": {}}
-
-    def add(axis, op, n=1, b=None):
-        if (axis == "data" and d == 1) or (axis == "model" and t == 1):
-            return
-        calls[axis][op] = calls[axis].get(op, 0) + n
-        if b is not None:
-            nbytes[axis][op] = nbytes[axis].get(op, 0) + b
-
-    def read(n, replay=False):
-        if "data" in specs[n]:
-            local = int(np.prod(shapes[n])) * elt
-            add("data", "all_gather", 1 + replay, local * (1 + replay))
-            add("data", "reduce_scatter", 1, local * d)
-
-    if family == "recsys":  # no FSDP: the norm sums over model only
-        add("model", "all_reduce", 2 + 1)  # two bags, the norm
-        add("data", "all_reduce", 2)  # one bucket, the loss
-        return {"calls": calls, "bytes": nbytes}
-
-    def attention(prefix, replay):
-        if cfg.mla:
-            for w in ("w_uq", "w_uk", "w_uv", "wo", "w_dq", "w_dkv", "w_kr"):
-                read(f"{prefix}.attn.{w}", replay)
-            add("model", "all_gather", 2 * (1 + replay))  # the two latents
-            add("model", "all_reduce", (1 + replay) + 5)  # wo; 2 x, q_lat, c, k_rope
-        else:
-            for w in ("wq", "wk", "wv", "wo"):
-                read(f"{prefix}.attn.{w}", replay)
-            add("model", "all_reduce", (1 + replay) + 1)  # wo's sum; x's gradient
-
-    def ffn(prefix, is_moe, replay):
-        if not is_moe:
-            for w in ("w_gate", "w_up", "w_down"):
-                read(f"{prefix}.mlp.{w}", replay)
-            add("model", "all_reduce", 1 + 1)  # closing sum (not replayed); x's gradient
-            return
-        for w in ("router", "we_gate", "we_up", "we_down"):
-            read(f"{prefix}.moe.{w}", replay)
-        add("model", "all_gather", 1 + replay)  # the experts' outputs
-        add("model", "all_reduce", 1)  # x's gradient
-        if cfg.moe.n_shared:
-            for w in ("w_gate", "w_up", "w_down"):
-                read(f"{prefix}.moe.shared.{w}", replay)
-            add("model", "all_reduce", 1 + 1)
-
-    def logits_and_loss():
-        read("head")
-        add("model", "all_reduce", 1 + 3)  # h's gradient; max, sum of exps, target
-
-    n_dense = cfg.first_k_dense if cfg.moe else cfg.n_layers
-    read("embed")
-    add("model", "all_reduce")  # the lookup's sum
-    for key, n, is_moe in (("dense_layers", n_dense, False),
-                           ("moe_layers", cfg.n_moe_layers, True)):
-        for i in range(n):
-            attention(f"{key}.{i}", cfg.remat)
-            ffn(f"{key}.{i}", is_moe, cfg.remat)
-    logits_and_loss()
-    if cfg.mtp_depth:
-        read("embed")
-        add("model", "all_reduce")
-        read("mtp.proj")
-        add("model", "all_gather")
-        add("model", "all_reduce")  # proj's input gradient
-        attention("mtp.layer", False)
-        ffn("mtp.layer", False, False)
-        logits_and_loss()
-    if cfg.moe:
-        add("data", "all_gather", 1, cfg.n_moe_layers * groups // d * cfg.moe.n_experts * 4)
-    add("data", "all_reduce", 1 + 1 + 1)  # the whole leaves' bucket, the loss, the norm
-    add("model", "all_reduce")  # the norm
-    return {"calls": calls, "bytes": nbytes}
-
-
 @pytest.mark.parametrize("name, mesh", _mesh_cases(), ids=_ids(_mesh_cases()))
 def test_collectives_per_step_equal_the_derived_count(runs, name, mesh):
     ranks = runs["launches"][mesh]
     got0 = ranks[0][name, MAIN]
-    want = derived_collectives(_config(name), _family(name), got0["specs"], got0["shapes"],
-                               *mesh)
+    cfg = _config(name)
+    want = derived_collectives(cfg, "train", got0["specs"], got0["shapes"],
+                               {"data": mesh[0], "model": mesh[1]},
+                               batch=4 if _family(name) == "lm" else 8, seq=32,
+                               frozen=frozenset(n for n in got0["specs"]
+                                                if n.endswith("router_bias")))
     for r in ranks:
         for step in r[name, MAIN]["per_step"]:
             for axis in ("data", "model"):
