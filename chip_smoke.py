@@ -70,16 +70,18 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 AdamW), a control with attention's gradient cut must fail;
                 no flash launch (the kernel has no backward).  MeshGraphNet
                 (15 layers, d 128) on minibatch_lg as the bundle sizes it
-                (169,984 nodes, 168,960 edges, 602 features) for 20 steps
-                through ``train()``, checkpointed every 10, its segment-sum
+                (169,984 nodes, 168,960 edges, 602 features) for 10 steps
+                through ``train()``, checkpointed every 5, its segment-sum
                 launches counted from 0 (every sum and every gather's
-                gradient); a run that crashes at step 15 and one that
-                resumes from step 10 must equal the straight run bit for
+                gradient); a run that crashes at step 8 and one that
+                resumes from step 5 must equal the straight run bit for
                 bit; the same steps twice with plain ``index_select``
                 gathers report how many tensors their atomic backward
                 moves.  DeepFM's train_batch (65,536 rows, 39 x 1 M x 10) for
                 5 steps.  PNA at ogb_products is reckoned, not run: its
-                backward keeps more than the card holds.
+                backward keeps more than the card holds; so is each rank's
+                share on R ranks of the flattened axis, and the smallest R
+                whose share fits the card.
   7. train_dp -- data-parallel training (``launch.mesh.make_host_mesh``'s
                 ``(data, model = 1)`` mesh, the train bundles' ``mesh=``,
                 ``train()`` inside a rank) on 2 ranks that share the card
@@ -148,10 +150,24 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 TinyLlama's prefill_32k cell at its reduced config on the
                 same ``(1, 2)`` mesh, each rank's flash launches counted
                 from 0 (one a layer).  Every step's collectives equal the
-                derived count.  Then the ``dryrun``
-                line: ``launch.dryrun`` reckons every cell at both
-                production meshes on the host (no card work), each cell's
-                state bytes a rank beside this card's memory (not a gate).
+                derived count.
+     gnn_ranks -- the same launch's ranks training GNNs on the flattened
+                axis (``launch.steps``: the graph batch split over every
+                rank, message passing on each rank's edges and node block,
+                the replicated parameters' partial gradients summed), one
+                step each at the published widths: MeshGraphNet
+                minibatch_lg (15 x 128; N = 169,984, E = 168,960) on
+                ``(2, 1)`` and PNA minibatch_lg (4 x 75, d_feat 602) on
+                ``(1, 2)``, each against the one-rank step the parent takes
+                from the same seeded state and batch (loss 1e-5, gnorm
+                1e-4), its control (the partial aggregates left unreduced)
+                outside that bound, every rank's segment-sum launches > 0
+                and its collectives equal to the derived count; each rank's
+                step time, collectives, share and peak bytes printed.  Then
+                the ``dryrun`` line: ``launch.dryrun`` reckons every cell
+                (the GNN cells too) at both production meshes on the host
+                (no card work), each cell's state bytes a rank beside this
+                card's memory (not a gate).
   8. graph   -- ``rmat_graph(22, 8, seed=42)`` (about 4.2 M vertices and
                 68 M directed edges, SNAP soc-LiveJournal1's size) split by
                 ``bfs_grow_partition(..., 8, seed=1)``; host build times.
@@ -383,7 +399,7 @@ from repro_torch.kernels.segment_sum import (  # noqa: E402
 )
 from repro_torch.kernels.segment_sum.kernel import segment_levels  # noqa: E402
 from repro_torch.ckpt import latest_step  # noqa: E402
-from repro_torch.data.synthetic import InputSpec, make_batch  # noqa: E402
+from repro_torch.data.synthetic import InputSpec, graph_batch, make_batch  # noqa: E402
 from repro_torch.launch.serve import serve_batch  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch.steps import build_bundle  # noqa: E402
@@ -404,6 +420,7 @@ from repro_torch.models.gnn import (  # noqa: E402
     MACE,
     PNA,
     DimeNet,
+    GraphShard,
     MeshGraphNet,
     SortedEdges,
     build_triplets,
@@ -608,7 +625,7 @@ TRAIN_GATE_RTOL = {"loss": 5e-5, "gnorm": 3e-3, "attn_gnorm": 3e-3}
 #: run that crashes at step TRAIN_GNN_CRASH and one that resumes from its
 #: checkpoint: losses and final state bit for bit those of the straight run
 TRAIN_GNN = ("meshgraphnet", "minibatch_lg")
-TRAIN_GNN_STEPS, TRAIN_GNN_CKPT, TRAIN_GNN_CRASH = 20, 10, 15
+TRAIN_GNN_STEPS, TRAIN_GNN_CKPT, TRAIN_GNN_CRASH = 10, 5, 8
 #: the atomic-order probe's depth (two runs with ``index_select`` gathers)
 TRAIN_GNN_PROBE_STEPS = 3
 #: DeepFM's train_batch at its published config
@@ -688,6 +705,18 @@ RECSYS_REFS: dict = {}
 #: every rank's collectives must equal the derived count and, on a card,
 #: its flash launches (counted from 0 around the cell) one a layer
 DRYRUN_CELL = ("tinyllama-1.1b", "prefill_32k")
+#: the gnn_ranks phase (in train_dp's launch, after serve_mesh): GNN training
+#: on the flattened axis of the same 2 ranks (``launch.steps``: the graph
+#: batch split over every rank, the parameters replicated, the gradients
+#: summed), one step of each case at its published config: (architecture,
+#: shape, mesh as (data, model)).  Each is held to the one-rank step the
+#: parent takes from the same seeded state and batch (GNN_REFS) within
+#: TRAIN_DP_RTOL; its control, the same step with the partial aggregates
+#: left unreduced (``GraphShard.scatter`` as the rank's own edges' sums),
+#: outside it; every rank's segment-sum launches > 0 on a card and its
+#: collectives equal to ``launch.dryrun.derived_collectives``
+GNN_RANKS = (("meshgraphnet", "minibatch_lg", (2, 1)), ("pna", "minibatch_lg", (1, 2)))
+GNN_REFS: dict = {}
 #: the template instantiations the main path runs, and the program each
 #: serves there: (variant, reduce, dtype, program name)
 MAIN_VARIANTS = (
@@ -1885,8 +1914,6 @@ def _train_gnn(device, seed: int) -> dict:
         probe = _atomics_probe(arch, shape, kw)
         model = ref["final_state"]["params"]
         bundle = build_bundle(arch, shape, device=device)
-        from repro_torch.data.synthetic import graph_batch
-
         batch = graph_batch(bundle.abstract_inputs, seed=seed, step=0,
                             n_nodes=bundle.abstract_inputs["x"].shape[0], device=device)
         profile = _profile(lambda: bundle.step_fn(ref["final_state"], batch))
@@ -1944,18 +1971,32 @@ def _train_recsys(device, seed: int) -> dict:
 
 def _pna_products_reckoning() -> dict:
     """Why PNA's train step at ogb_products does not run on one card: the
-    bytes autograd keeps for its backward, at least."""
+    bytes autograd keeps for its backward, at least; and on R ranks of the
+    flattened axis (``launch.steps``), each rank's share: its edges' part
+    of those bytes, plus the whole-graph extrema each layer's max and min
+    keep for their backward (``[N, d]`` each, all-reduced), and the smallest
+    R that divides the graph (``_gnn_sizes`` pads to 512) whose share fits
+    the card.  A reckoning: one card cannot hold two ranks' halves."""
     cfg = ARCHS["pna"].config
     shape = GRAPH_SHAPES["ogb_products"]
     e = (shape.n_edges + 511) // 512 * 512
+    n = (shape.n_nodes + 511) // 512 * 512
     edge_tensor = e * cfg.d_hidden * 4  # one [E, d] float32 tensor
     # per layer: the gathered message (read by m*m's backward), and max's
     # and min's masked copies (kept for their tie-split backward)
     kept = 3 * edge_tensor * cfg.n_layers
-    return {"E": e, "d_hidden": cfg.d_hidden, "layers": cfg.n_layers,
+    extrema = 2 * n * cfg.d_hidden * 4 * cfg.n_layers
+    card = torch.cuda.get_device_properties(0).total_memory
+
+    def per_rank(r: int) -> int:
+        return kept // r + extrema
+
+    fits = next(r for r in (2 ** k for k in range(1, 10)) if per_rank(r) <= card)
+    return {"E": e, "N": n, "d_hidden": cfg.d_hidden, "layers": cfg.n_layers,
             "edge_tensor_bytes": edge_tensor, "kept_bytes_at_least": kept,
-            "card_bytes": torch.cuda.get_device_properties(0).total_memory,
-            "runs": False}
+            "card_bytes": card, "runs": False,
+            "ranks": {"kept_bytes_per_rank_at_least": {r: per_rank(r) for r in (2, 4, 8, 16)},
+                      "extrema_bytes_per_rank": extrema, "smallest_ranks_that_fit": fits}}
 
 
 def phase_train(device, seed: int) -> dict:
@@ -2350,13 +2391,77 @@ def _dryrun_cell(mesh) -> dict:
                   "variant_launches": dict(flash_fwd.variant_launches)}
 
 
+def _gnn_step(bundle, seed: int, device) -> tuple:
+    """One step of a GNN bundle from its seeded state on the seeded global
+    batch of step 0 (``train()``'s first): ``(loss, gnorm, seconds)``."""
+    state = bundle.init_state_fn(seed)
+    inputs = bundle.abstract_inputs
+    batch = graph_batch(inputs, seed=seed, step=0,
+                        n_nodes=(inputs.get("x") or inputs["species"]).shape[0], device=device)
+    t0 = time.perf_counter()
+    state, m = bundle.step_fn(state, batch)
+    loss = float(m["loss"])  # waits for the step
+    return loss, float(m["gnorm"]), time.perf_counter() - t0, state
+
+
+def _gnn_one_rank(device, seed: int) -> dict:
+    """The one-rank step of each GNN_RANKS case (the gnn_ranks phase's
+    reference), with its segment-sum launches and peak device bytes."""
+    out = {}
+    for arch, shape, _ in GNN_RANKS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        bundle = build_bundle(arch, shape, device=device)
+        (loss, gnorm, secs, state), launches = _counted(lambda: _gnn_step(bundle, seed, device))
+        out[arch] = {"loss": loss, "gnorm": gnorm, "step_s": secs, "launches": launches,
+                     "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gnn_rank(mesh, seed: int, arch: str, shape: str) -> dict:
+    """One step of a GNN_RANKS case on this rank of ``mesh``'s flattened
+    axis, its collectives and segment-sum launches counted from 0 around
+    it; then the control step from the same state, the partial aggregates
+    left unreduced."""
+    bundle = build_bundle(arch, shape, mesh=mesh)
+    _rank_peak(mesh, reset=True)
+    on_card = mesh.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    segment_sum_sorted.launches = 0
+    before = mesh.stats()
+    loss, gnorm, secs, state = _gnn_step(bundle, seed, mesh.device)
+    after = mesh.stats()
+    launches = segment_sum_sorted.launches
+    flat = _stats_delta(before["flat"], after["flat"])
+    res = {"arch": arch, "shape": mesh.shape, "loss": loss, "gnorm": gnorm, "step_s": secs,
+           "launches": launches, "stats": flat, "collective_share": flat["seconds"] / secs,
+           "peak_device_bytes": _rank_peak(mesh),
+           "counts": _counts(dryrun.stats_delta(before, after),
+                             dryrun.derived_for(bundle, state["params"], mesh))}
+    del state
+    real = GraphShard.scatter
+    GraphShard.scatter = lambda self, partial: self.block(partial)
+    try:
+        ctrl = _gnn_step(bundle, seed, mesh.device)
+    finally:
+        GraphShard.scatter = real
+    res["control"] = {"loss": ctrl[0], "gnorm": ctrl[1], "step_s": ctrl[2]}
+    del ctrl
+    _rank_peak(mesh, reset=True)
+    return res
+
+
 def _dp_rank(seed: int, root: str, lm_cfg, lm_seq: int, recsys_cfg, prefill: dict,
              decode: dict) -> dict:
     """One rank of the train_dp launch: every case, at the configs the
     parent sends (the published ones on the card); then the model_axis
     cases on the same ranks as a (1, MODEL_AXIS_RANKS) mesh (``prefill``:
     arch -> (config, tokens)), then the serve_mesh cases (``decode``: arch
-    -> (config, tokens, first position, cache slots))."""
+    -> (config, tokens, first position, cache slots)), then the gnn_ranks
+    cases (GNN_RANKS, at their published configs)."""
     mesh = make_host_mesh()
     t0 = time.perf_counter()
     out = {"mesh": mesh.data.describe(), "shape": mesh.shape,
@@ -2380,6 +2485,11 @@ def _dp_rank(seed: int, root: str, lm_cfg, lm_seq: int, recsys_cfg, prefill: dic
                    "1x2": _serve_recsys(tp, seed, recsys_cfg, retrieval=False)},
         "dryrun_cell": _dryrun_cell(tp),
         "rank_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    meshes = {(2, 1): mesh, (1, 2): tp}
+    out["gnn_ranks"] = {"cases": [_gnn_rank(meshes[dims], seed, arch, shape)
+                                  for arch, shape, dims in GNN_RANKS],
+                        "rank_s": time.perf_counter() - t0}
     return out
 
 
@@ -2413,13 +2523,15 @@ def _held(case: str, got: dict, ref: dict, steps: int, ranks, key,
         "step_s": float(np.median(got["step_s_each"][1:] or got["step_s_each"]))}
 
 
-def phase_train_dp(device, seed: int, train_line: dict) -> tuple[dict, dict, dict]:
+def phase_train_dp(device, seed: int, train_line: dict) -> tuple[dict, dict, dict, dict]:
     """Data-parallel training on ranks sharing the card (see TRAIN_DP_*),
-    then the model_axis cases on the same ranks (see MODEL_AXIS_RANKS) and
-    the serve_mesh cases; ``train_line`` is the train phase's, the one-rank
-    values, and PREFILL_REFS, DECODE_REFS and RECSYS_REFS the lm and recsys
-    phases'.  Returns the three phases' lines."""
+    then the model_axis cases on the same ranks (see MODEL_AXIS_RANKS), the
+    serve_mesh cases and the gnn_ranks cases; ``train_line`` is the train
+    phase's, the one-rank values, PREFILL_REFS, DECODE_REFS and RECSYS_REFS
+    the lm and recsys phases', and GNN_REFS is filled here first.  Returns
+    the four phases' lines."""
     t0 = time.perf_counter()
+    GNN_REFS.update(_gnn_one_rank(device, seed))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as root:
         lm = ARCHS[TRAIN_LM_ARCH]
@@ -2484,7 +2596,46 @@ def phase_train_dp(device, seed: int, train_line: dict) -> tuple[dict, dict, dic
     tp_line["nvidia_smi"] = line["nvidia_smi"]
     serve_line = _serve_mesh_line(ranks, device.type == "cuda")
     serve_line["nvidia_smi"] = line["nvidia_smi"]
-    return line, tp_line, serve_line
+    gnn_line = _gnn_ranks_line(ranks, device.type == "cuda")
+    gnn_line["nvidia_smi"] = line["nvidia_smi"]
+    return line, tp_line, serve_line, gnn_line
+
+
+def _gnn_ranks_line(ranks, on_card: bool) -> dict:
+    """The gnn_ranks cases of the launch ``ranks``, held against GNN_REFS
+    (see GNN_RANKS; a CPU rehearsal launches no kernel)."""
+    line = {"ranks": TRAIN_DP_RANKS, "rank_s": [r["gnn_ranks"]["rank_s"] for r in ranks],
+            "cases": []}
+    for i, (arch, shape, dims) in enumerate(GNN_RANKS):
+        each = [r["gnn_ranks"]["cases"][i] for r in ranks]
+        ref = GNN_REFS[arch]
+        off = {k: max(abs(p[k] - ref[k]) / abs(ref[k]) for p in each) for k in TRAIN_DP_RTOL}
+        ctrl = {k: min(abs(p["control"][k] - ref[k]) / abs(ref[k]) for p in each)
+                for k in TRAIN_DP_RTOL}
+        case = f"gnn_ranks {arch} {dims}"
+        _check(all(off[k] <= TRAIN_DP_RTOL[k] for k in off),
+               f"{case}: off the one-rank step by {off} (bound {TRAIN_DP_RTOL})")
+        _check(any(ctrl[k] > TRAIN_DP_RTOL[k] for k in ctrl),
+               f"{case}: the control (the partial aggregates unreduced) passed: {ctrl}")
+        _check(not on_card or all(p["launches"] > 0 for p in each),
+               f"{case}: a rank launched the segment-sum kernel no time: "
+               f"{[p['launches'] for p in each]}")
+        _check_counts(case, [p["counts"] for p in each])
+        cfg = ARCHS[arch].config
+        p0 = each[0]
+        line["cases"].append({
+            "arch": arch, "shape": shape, "mesh": p0["shape"], "layers": cfg.n_layers,
+            "d_hidden": cfg.d_hidden, "one_rank": ref, "loss_each": [p["loss"] for p in each],
+            "gnorm_each": [p["gnorm"] for p in each], "off": off, "control_off": ctrl,
+            "rtol": TRAIN_DP_RTOL, "step_s_each": [p["step_s"] for p in each],
+            "control_step_s_each": [p["control"]["step_s"] for p in each],
+            "launches_each": [p["launches"] for p in each],
+            "stats_each": [p["stats"] for p in each],
+            "collective_share_each": [p["collective_share"] for p in each],
+            "peak_device_bytes_each": [p["peak_device_bytes"] for p in each],
+            "counts_per_step": p0["counts"]["derived_per_step"], "counts_equal": True})
+    line["launches"] = sum(sum(c["launches_each"]) for c in line["cases"])
+    return line
 
 
 def _check_counts(case: str, counts: list) -> None:
@@ -2584,12 +2735,10 @@ def phase_dryrun() -> dict:
     reference's "does it fit" question for an H100.  Not a gate."""
     t0 = time.perf_counter()
     total = torch.cuda.get_device_properties(0).total_memory
-    cells, pending, skipped = [], 0, 0
+    cells, skipped = [], 0
     for arch, shape, kind, rec in dryrun.reckon_all():
         if kind is None:
             skipped += 1
-        elif rec["ok"] is None:
-            pending += 1
         else:
             st = rec["state_bytes_per_rank"]
             cells.append({"arch": arch, "shape": shape, "mesh": kind,
@@ -2597,7 +2746,7 @@ def phase_dryrun() -> dict:
                           "wire_bytes_per_device": rec["collectives"]["wire_bytes_per_device"],
                           "collective_calls": sum(rec["collectives"]["counts"].values()),
                           "state_fits_card": st["total"] <= total})
-    return {"card_total_memory": total, "cells": cells, "pending": pending, "skipped": skipped,
+    return {"card_total_memory": total, "cells": cells, "skipped": skipped,
             "not_reckoned": dryrun.NOT_RECKONED, "reckon_s": time.perf_counter() - t0}
 
 
@@ -4368,7 +4517,7 @@ def phase_analysis(pg, device, seed: int) -> dict:
 def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
                  seg_livj: dict, path_launches: dict, mesh_planes: list, gnn: dict,
                  gnn_case: dict, lm: dict, recsys: dict, train_line: dict,
-                 model_axis: dict, serve_mesh: dict) -> dict:
+                 model_axis: dict, serve_mesh: dict, gnn_ranks: dict) -> dict:
     """One entry per kernel the main path launched, with its numbers at the
     main path's own shape: the relax kernel's local closure reduction, the
     segment sum over uniform ids, the flash kernel at the Mixtral 32k
@@ -4381,8 +4530,9 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
     mesh rank's planes (``mesh_planes``); the segment-sum entry its
     launches on its own path and the gnn path (every model's run, the halo
     ranks' summed), the recsys path (the ragged bag, its case under
-    ``cases``) and the train path (MeshGraphNet's straight run: every sum
-    and every gather's gradient); the flash entry its launches on the lm
+    ``cases``), the train path (MeshGraphNet's straight run: every sum
+    and every gather's gradient) and the gnn_ranks path (each case's step
+    on the flattened axis, summed over the ranks); the flash entry its launches on the lm
     path (every GQA layer's prefill), the model_axis path (every GQA
     layer's prefill on each rank's heads, summed over the ranks) and each
     model's layer-0 case (the train path launches it no time: it has no
@@ -4435,7 +4585,7 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
             "launches": launches,
             "launches_by_path": (
                 {"segment_sum": launches, "gnn": gnn["launches"], "recsys": recsys["launches"],
-                 "train": train_line["launches"]}
+                 "train": train_line["launches"], "gnn_ranks": gnn_ranks["launches"]}
                 if phase is seg else {"flash_attention": launches, "lm": lm["launches"],
                                       "model_axis": model_axis["launches"],
                                       "serve_mesh": serve_mesh["launches"]}),
@@ -4484,11 +4634,12 @@ def main(argv=None) -> int:
     _emit("recsys", report["recsys"])
     report["train"] = phase_train(device, args.seed)
     _emit("train", report["train"])
-    report["train_dp"], report["model_axis"], report["serve_mesh"] = phase_train_dp(
-        device, args.seed, report["train"])
+    (report["train_dp"], report["model_axis"], report["serve_mesh"],
+     report["gnn_ranks"]) = phase_train_dp(device, args.seed, report["train"])
     _emit("train_dp", report["train_dp"])
     _emit("model_axis", report["model_axis"])
     _emit("serve_mesh", report["serve_mesh"])
+    _emit("gnn_ranks", report["gnn_ranks"])
     report["dryrun"] = phase_dryrun()
     _emit("dryrun", report["dryrun"])
     pg, report["graph"] = build_graph(args.scale, LIVJ_PARTS)
@@ -4528,6 +4679,7 @@ def main(argv=None) -> int:
         {path: report[path]["variant_launches"] for path in ("elastic", "serve", "mesh")},
         report["mesh"]["kernel_planes"], report["gnn"], gnn_case, report["lm"],
         report["recsys"], report["train"], report["model_axis"], report["serve_mesh"],
+        report["gnn_ranks"],
     )["kernels"]
     report["wall_s"] = time.perf_counter() - t_start
     report["phase_seconds"] = dict(PHASE_SECONDS)

@@ -15,7 +15,10 @@ card's differ.
 
 Data-parallel ranks all draw the global batch and take their rows of it
 (``shard_batch``, by their index on the batch axes, pod-major), so a shard
-is exactly rows of the one-rank batch.
+is exactly rows of the one-rank batch.  A graph batch is split over the
+flattened axis instead (every rank of the mesh, in rank order), as the
+reference's GNN input specs say: its edge, triplet and node arrays each in
+contiguous blocks, the ids in them still global.
 """
 
 from __future__ import annotations
@@ -73,6 +76,33 @@ def make_batch(abstract_inputs: dict, *, seed: int, step: int, bounds: dict | No
     return out
 
 
+#: a graph batch's arrays split over the flattened axis (the reference's
+#: ``P(dp + ("model",))`` input specs); a regression's per-graph ``labels``
+#: stay whole (``P(None)``)
+GRAPH_SPLIT = ("edge_src", "edge_dst", "edge_mask", "edge_feat", "trip_kj", "trip_ji",
+               "trip_mask", "x", "species", "positions", "graph_id", "label_mask")
+
+
+def _shard_graph(batch: dict, mesh) -> dict:
+    """This rank's share of a global graph batch on ``mesh``'s flattened
+    axis (``HostMesh.flat``: R = P*D*T ranks, index r): the rank takes block
+    r of R contiguous blocks of each edge, triplet and node array (and of
+    ``labels`` where they are per node, with a ``label_mask``), and an
+    array whose length R does not divide stays whole, as the reference's
+    ``_fit_specs`` leaves it.  Edge endpoints and triplet edge ids keep
+    their global values."""
+    axis = mesh.flat
+    r, n_ranks = axis.rank, axis.world_size
+    split = GRAPH_SPLIT + (("labels",) if "label_mask" in batch else ())
+    out = {}
+    for name, t in batch.items():
+        if name in split and t.shape[0] % n_ranks == 0:
+            rows = t.shape[0] // n_ranks
+            t = t[r * rows:(r + 1) * rows]
+        out[name] = t
+    return out
+
+
 def shard_batch(batch: dict, mesh, *, replicate_uneven: bool = False) -> dict:
     """This batch rank's rows of a global batch: the rank at index r of the
     D = pod x data batch ranks (pod-major, ``HostMesh.batch``) takes rows
@@ -80,7 +110,11 @@ def shard_batch(batch: dict, mesh, *, replicate_uneven: bool = False) -> dict:
     "data"), ...)`` placement; the model axis shares them).  A batch of B
     rows that D ranks cannot split evenly raises, or, with
     ``replicate_uneven`` (the reference's serving specs: ``P(None, ...)``
-    where B does not divide), is returned whole to every rank."""
+    where B does not divide), is returned whole to every rank.  A graph
+    batch (one with ``edge_src``) is split over the flattened axis instead
+    (``_shard_graph``)."""
+    if "edge_src" in batch:
+        return _shard_graph(batch, mesh)
     d = dp_size(mesh)
     rows = {int(t.shape[0]) for t in batch.values()}
     if len(rows) != 1:

@@ -51,6 +51,14 @@ The model axis and FSDP (``launch.mesh.make_mesh``'s ``(data = D, model
   * ``PartitionMesh.reduce_scatter``, counted like the others (gloo runs
     it on CUDA tensors too).
 
+The GNN steps (``launch.steps`` on the flattened axis ``HostMesh.flat``)
+read the same pairs along dim 0: ``fsdp_gather`` (a node table's blocks
+gathered, the gradient reduce-scattered), ``reduce_scatter_rows`` (partial
+aggregates summed into the rank's block, the gradient all-gathered) and
+``reduce_from_model`` (a readout's partial sums), with
+``all_reduce_grads`` summing (not averaging) the partial gradients.
+``gnn_param_specs`` replicates every parameter.
+
 A collective over an axis of one rank is no call at all: it returns its
 input (a copy where the call would give a new tensor) and counts nothing.
 """
@@ -128,8 +136,8 @@ class PartitionMesh:
     # -- collectives ---------------------------------------------------------
 
     def all_reduce(self, t: torch.Tensor, op: str = "max") -> torch.Tensor:
-        """``MAX`` or ``SUM`` over the ranks; returns a new tensor."""
-        red = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}[op]
+        """``MAX``, ``MIN`` or ``SUM`` over the ranks; returns a new tensor."""
+        red = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN, "sum": dist.ReduceOp.SUM}[op]
         if self.world_size == 1:
             return t.clone()
         t0 = time.perf_counter()
@@ -279,8 +287,11 @@ def dp_size(mesh) -> int:
 
 
 def all_reduce_grads(named_grads: dict, params: dict, mesh: PartitionMesh, *,
-                     summed: frozenset = frozenset(), pod: PartitionMesh | None = None) -> dict:
-    """The mean over the batch ranks of each rank's gradients.
+                     summed: frozenset = frozenset(), pod: PartitionMesh | None = None,
+                     average: bool = True) -> dict:
+    """The mean over the batch ranks of each rank's gradients (their sum,
+    undivided, where ``average`` is False: the GNN steps' partial gradients
+    over the flattened axis, whose sum is the one-rank gradient).
 
     ``mesh`` is the batch axes' ``PartitionMesh`` (``HostMesh.batch``: pod x
     data; the data axis where there is no pod axis).  ``named_grads`` maps
@@ -303,7 +314,7 @@ def all_reduce_grads(named_grads: dict, params: dict, mesh: PartitionMesh, *,
     for name, p in params.items():
         g = named_grads.get(name)
         out[name] = torch.zeros_like(p) if g is None else g.contiguous()
-    n_ranks = mesh.world_size
+    n_ranks = mesh.world_size if average else 1
     whole = {n: g for n, g in out.items() if n not in summed}
     split = {n: g for n, g in out.items() if n in summed}
     _mean_buckets(whole, mesh, n_ranks)
@@ -341,7 +352,8 @@ def _mean_buckets(grads: dict, axis: PartitionMesh, n_ranks: int) -> None:
 def _mean_bucket(pieces: list, axis: PartitionMesh, n_ranks: int) -> None:
     bucket = torch.cat(pieces) if len(pieces) > 1 else pieces[0]
     total = axis.all_reduce(bucket, op="sum")
-    total.div_(n_ranks)
+    if n_ranks > 1:
+        total.div_(n_ranks)
     off = 0
     for piece in pieces:
         piece.copy_(total[off:off + piece.numel()])
@@ -569,6 +581,21 @@ class _GatherAlong(torch.autograd.Function):
         return out, None, None, None
 
 
+class _ScatterAlong(torch.autograd.Function):
+    """Reduce-scatter along dim 0 forward: the ranks' partials summed, the
+    rank's block of rows kept.  Backward, the blocks' gradients
+    all-gathered: each rank's partial fed every block."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis.reduce_scatter(x.reshape(axis.world_size, -1, *x.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _cat_gathered(ctx.axis.all_gather(g.contiguous()), 0), None
+
+
 # Outside grad mode (the serving steps run under ``torch.inference_mode``)
 # each pair is its forward collective alone: no autograd node is made.
 
@@ -604,6 +631,17 @@ def gather_from_model(x: torch.Tensor, axis: PartitionMesh | None,
     if axis is None or axis.world_size == 1:
         return x
     return _gather_along(x, axis, dim % x.dim(), False)
+
+
+def reduce_scatter_rows(x: torch.Tensor, axis: PartitionMesh | None) -> torch.Tensor:
+    """The rank's block of rows of the ranks' summed partials ``x`` (``[R *
+    n, ...]``: reduce-scatter forward); the block's gradient all-gathered
+    backward.  Every rank must pass the same shape."""
+    if axis is None or axis.world_size == 1:
+        return x
+    if not torch.is_grad_enabled():
+        return axis.reduce_scatter(x.reshape(axis.world_size, -1, *x.shape[1:]))
+    return _ScatterAlong.apply(x, axis)
 
 
 def fsdp_gather(w: torch.Tensor, axis: PartitionMesh | None, dim: int) -> torch.Tensor:

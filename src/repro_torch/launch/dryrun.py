@@ -25,9 +25,10 @@ So the dry run here has two halves.
     equal on every mesh shape they run, so each formula the reckoning
     evaluates at 256 or 512 ranks is one a run of the same axes checked.
 
-GNN cells are pending (their train steps on a mesh raise: ROADMAP Queue A
-item 3), recorded with that message and not counted as failures; the
-shapes an architecture skips keep the reference's reasons.
+A GNN cell is reckoned on the flattened axis its step runs on (``flat``:
+all 256 or 512 ranks, the reference's ``dp + ("model",)``): its graph split
+over them, its parameters replicated.  The shapes an architecture skips
+keep the reference's reasons.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun                 # everything
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepfm --shape serve_bulk
@@ -49,7 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS
-from repro_torch.configs.base import LMConfig
+from repro_torch.configs.base import GNNConfig, LMConfig
 from repro_torch.dist import sharding
 from repro_torch.dist.sharding import FSDP, MODEL, axis_size, fit_specs, mesh_sizes
 from repro_torch.models import moe as moe_mod
@@ -89,14 +90,16 @@ def _axis_sizes(mesh_sizes_: dict) -> dict:
     p = int(mesh_sizes_.get("pod", 1))
     d = int(mesh_sizes_.get("data", 1))
     t = int(mesh_sizes_.get("model", 1))
-    return {"pod": p, "data": d, "model": t, "batch": p * d}
+    return {"pod": p, "data": d, "model": t, "batch": p * d, "flat": p * d * t}
 
 
 def derived_collectives(cfg, kind: str, specs: dict, shapes: dict, mesh_sizes_: dict, *,
-                        batch: int, seq: int | None = None, elts=4, act: int | None = None,
+                        batch: int | None = None, seq: int | None = None, elts=4,
+                        act: int | None = None,
                         groups: int | None = None, cache_spec: tuple | None = None,
                         candidates: int | None = None, k: int | None = None,
-                        frozen=frozenset()) -> dict:
+                        frozen=frozenset(), graph: dict | None = None,
+                        regression: bool = False) -> dict:
     """The collectives one step issues on each rank, per axis and op, with
     their bytes (as ``CollectiveStats`` records them), derived from the
     fitted ``specs`` (name -> axis tuple), the rank's parameter ``shapes``
@@ -139,16 +142,34 @@ def derived_collectives(cfg, kind: str, specs: dict, shapes: dict, mesh_sizes_: 
         summed over ``model``; serve's scores gathered over the batch axes
         where its ids split; retrieval's local top ``k`` (float32 scores and
         int64 ids) gathered where the ``candidates`` split.
+      * GNN (``graph``: the bundle's ``_gnn_sizes``), all over the flattened
+        axis ``flat`` of R = P*D*T ranks, float32: each node table a layer
+        reads gathered (all-gather of the ``N/R`` block; its gradient
+        reduce-scattered, ``N`` rows), each partial aggregate
+        reduce-scattered (``N`` rows; its gradient all-gathered), each
+        max or min all-reduced (``N`` rows) with, backward, its gradient
+        blocks all-gathered and its tie counts all-reduced.  PNA: the
+        degrees once (no gradient), then per layer its messages gathered,
+        mean and std two sums, max and min; MeshGraphNet: per layer ``h``
+        gathered and the edge sums; MACE: the positions once (no gradient),
+        per layer ``h [N/R, C, 9]`` gathered and the A-basis; DimeNet: the
+        edge layout (int64 ``E/R``), the positions, the edge vectors
+        (``E/R x 3``, no gradient) and the embedded ``h`` once, per block
+        ``m @ down`` gathered over the edge layout (``E/R x nb``) and its
+        triplet sums reduce-scattered (``E`` rows), and the edge-to-node
+        sums.  A regression's readout all-reduced (``n_graphs``), a
+        classification's masked-mean pair (8 bytes); the gradients summed
+        in buckets; no norm collective (every leaf whole).
 
     ``groups``: an MoE layer's dispatch groups over the global batch
     (``moe._n_groups`` of its tokens by default); ``frozen``: the
     parameters no gradient reaches (``router_bias``).  Returns ``{"calls":
     {axis: {op: n}}, "bytes": {axis: {op: bytes}}}`` with axes ``data`` and
-    ``model``, and ``pod`` and ``batch`` where P > 1.
+    ``model``, ``flat``, and ``pod`` and ``batch`` where P > 1.
     """
     n = _axis_sizes(mesh_sizes_)
     p_, d_, t_, dp = n["pod"], n["data"], n["model"], n["batch"]
-    axes = ("data", "model") + (("pod", "batch") if p_ > 1 else ())
+    axes = ("data", "model", "flat") + (("pod", "batch") if p_ > 1 else ())
     calls = {a: {} for a in axes}
     nbytes = {a: {} for a in axes}
     bat = "batch" if p_ > 1 else "data"
@@ -164,6 +185,9 @@ def derived_collectives(cfg, kind: str, specs: dict, shapes: dict, mesh_sizes_: 
     def elt(name):
         return elts if isinstance(elts, int) else elts[name]
 
+    if isinstance(cfg, GNNConfig):
+        return _gnn(cfg, graph, regression, shapes, n, add, elt,
+                    {"calls": calls, "bytes": nbytes}, frozen)
     if not isinstance(cfg, LMConfig):
         return _recsys(cfg, kind, specs, shapes, n, add, elt, batch, candidates, k,
                        {"calls": calls, "bytes": nbytes}, frozen)
@@ -382,6 +406,71 @@ def _recsys(cfg, kind, specs, shapes, n, add, elt, batch, candidates, k, out,
     return out
 
 
+def _gnn(cfg, graph, regression, shapes, n, add, elt, out, frozen) -> dict:
+    """A GNN train step's collectives (see ``derived_collectives``)."""
+    r = n["flat"]
+    nodes, edges, g = graph["n"], graph["e"], graph["n_graphs"]
+    d = cfg.d_hidden
+
+    def gather(width, rows=nodes, elt_=4, grad=True):  # GraphShard.gather
+        add("flat", "all_gather", 1, rows // r * width * elt_)
+        if grad:
+            add("flat", "reduce_scatter", 1, rows * width * elt_)
+
+    def scatter(width, rows=nodes, grad=True):  # reduce_scatter_rows
+        add("flat", "reduce_scatter", 1, rows * width * 4)
+        if grad:
+            add("flat", "all_gather", 1, rows // r * width * 4)
+
+    def extremum(width):  # all-reduce; backward: the gradient and the ties
+        add("flat", "all_reduce", 2, 2 * nodes * width * 4)
+        add("flat", "all_gather", 1, nodes // r * width * 4)
+
+    if cfg.kind == "pna":
+        aggs = tuple(cfg.extra["aggregators"])
+        fused = "mean" in aggs and "std" in aggs
+        sums = 2 * fused + sum({"sum": 1, "mean": 1, "std": 2}.get(a, 0) for a in aggs
+                               if not (fused and a in ("mean", "std")))
+        scatter(1, grad=False)  # the degrees
+        for _ in range(cfg.n_layers):
+            gather(d)
+            for _ in range(sums):
+                scatter(d)
+            for _ in range(sum(a in ("max", "min") for a in aggs)):
+                extremum(d)
+    elif cfg.kind == "meshgraphnet":
+        for _ in range(cfg.n_layers):
+            gather(d)
+            scatter(d)
+    elif cfg.kind == "mace":
+        gather(3, grad=False)  # the positions
+        for _ in range(cfg.n_layers):
+            gather(9 * d)
+            scatter(9 * d)
+    else:  # dimenet
+        nb = cfg.extra["n_bilinear"]
+        gather(1, rows=edges, elt_=8, grad=False)  # the ranks' edge orders
+        gather(3, grad=False)  # the positions
+        gather(d)  # the embedded species
+        gather(3, rows=edges, grad=False)  # the edge vectors
+        for _ in range(cfg.n_layers):
+            gather(nb, rows=edges)
+            scatter(nb, rows=edges)
+            scatter(d)
+    if regression:
+        add("flat", "all_reduce", 1, g * 4)  # the per-graph readout
+    else:
+        add("flat", "all_reduce", 1, 8)  # the masked mean's numerator and count
+    by_elt: dict = {}
+    for name, shape in shapes.items():
+        if name not in frozen:
+            by_elt[elt(name)] = by_elt.get(elt(name), 0) + int(np.prod(shape))
+    for e, count in by_elt.items():
+        cap = max(1, sharding.GRAD_BUCKET_BYTES // e)
+        add("flat", "all_reduce", math.ceil(count / cap), count * e)
+    return out
+
+
 def derived_for(bundle, model, mesh, **sizes) -> dict:
     """``derived_collectives`` for ``bundle``'s step on ``mesh`` (a
     ``HostMesh``), reading the placed ``model``'s fitted specs, the rank's
@@ -392,10 +481,11 @@ def derived_for(bundle, model, mesh, **sizes) -> dict:
     return derived_collectives(
         model.cfg, info["kind"], model.placement.specs,
         {nm: tuple(p.shape) for nm, p in params.items()}, mesh_sizes(mesh),
-        batch=info["batch"], seq=info.get("seq"),
+        batch=info.get("batch"), seq=info.get("seq"),
         elts={nm: p.element_size() for nm, p in params.items()},
         cache_spec=info.get("cache_spec"), candidates=info.get("candidates"),
-        k=info.get("k"), frozen=frozenset(nm for nm, p in params.items() if not p.requires_grad))
+        k=info.get("k"), frozen=frozenset(nm for nm, p in params.items() if not p.requires_grad),
+        graph=info.get("graph"), regression=info.get("regression", False))
 
 
 def by_op(derived: dict, mesh_sizes_: dict) -> dict:
@@ -416,15 +506,27 @@ def by_op(derived: dict, mesh_sizes_: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _meta_model(spec):
-    """The cell's model at its published config on meta tensors."""
+def _meta_model(spec, shape_name: str):
+    """The cell's model at its published config on meta tensors (a GNN's
+    input and output widths are its shape's)."""
+    from repro_torch.launch.steps import _gnn_sizes, gnn_model, gnn_regression
     from repro_torch.models.recsys import DeepFM
     from repro_torch.models.transformer import Transformer
 
     with torch.device("meta"):
         if spec.family == "lm":
             return Transformer(spec.config, device="meta")
+        if spec.family == "gnn":
+            shape = spec.shapes()[shape_name]
+            return gnn_model(spec.config, _gnn_sizes(shape, reduced=False),
+                             gnn_regression(spec.config, shape), device="meta")
         return DeepFM(spec.config, device="meta")
+
+
+def _model_key(arch: str, shape_name: str):
+    """What a cell's meta model depends on: the architecture, and a GNN's
+    shape."""
+    return (arch, shape_name) if ARCHS[arch].family == "gnn" else arch
 
 
 def _local(shape, spec, sizes) -> tuple:
@@ -435,19 +537,21 @@ def _cell_layout(arch: str, shape_name: str, layout, model=None) -> dict:
     """What the reckoning reads: the fitted specs, the rank's shapes and
     element bytes, and the step's sizes, at the published config
     (``model``: the architecture's meta model, where the caller has it)."""
-    from repro_torch.launch.steps import serving_fsdp
+    from repro_torch.launch.steps import _gnn_sizes, gnn_regression, serving_fsdp
     from repro_torch.models import attention as attn
     from repro_torch.models.transformer import cache_spec
 
     spec = ARCHS[arch]
     shape = spec.shapes()[shape_name]
     cfg = spec.config
-    model = _meta_model(spec) if model is None else model
+    model = _meta_model(spec, shape_name) if model is None else model
     sizes = mesh_sizes(layout)
     if spec.family == "lm":
         specs = sharding.lm_param_specs(model)
         if shape.kind != "train" and not serving_fsdp(cfg, layout):
             specs = {nm: tuple(None if ax == FSDP else ax for ax in s) for nm, s in specs.items()}
+    elif spec.family == "gnn":
+        specs = sharding.gnn_param_specs(model)
     else:
         specs = sharding.recsys_param_specs(model)
     specs = fit_specs(specs, model, layout)
@@ -470,6 +574,9 @@ def _cell_layout(arch: str, shape_name: str, layout, model=None) -> dict:
                         full = (n_l, *s)
                         out["cache"][f"{key}.{nm}"] = _local(
                             full, tuple(c_spec) + (None,) * (len(full) - 3), sizes)
+    elif spec.family == "gnn":
+        out.update(kind="train", graph=_gnn_sizes(shape, reduced=False),
+                   regression=gnn_regression(cfg, shape))
     else:
         out.update(batch=shape.batch, candidates=shape.n_candidates or None,
                    k=100 if shape.kind == "retrieval" else None)
@@ -502,9 +609,9 @@ def reckon_cell(arch: str, shape_name: str, mesh_kind: str, *, model=None) -> di
     lay = _cell_layout(arch, shape_name, layout, model)
     derived = derived_collectives(
         lay["cfg"], lay["kind"], lay["specs"], lay["shapes"], layout.shape,
-        batch=lay["batch"], seq=lay.get("seq"), elts=lay["elts"],
+        batch=lay.get("batch"), seq=lay.get("seq"), elts=lay["elts"],
         cache_spec=lay.get("cache_spec"), candidates=lay.get("candidates"), k=lay.get("k"),
-        frozen=lay["frozen"])
+        frozen=lay["frozen"], graph=lay.get("graph"), regression=lay.get("regression", False))
     return {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind, "n_devices": layout.size,
         "axes": layout.shape, "ok": True,
@@ -534,32 +641,22 @@ def cells(arch=None, shape=None, mesh=None):
 
 
 def _record(arch: str, shape: str, kind, skip, models: dict) -> dict:
-    """A cell's record: a skip (``kind`` None), a pending one (``ok`` None)
-    or the reckoning (``models``: the meta models built so far, by arch)."""
+    """A cell's record: a skip (``kind`` None) or the reckoning
+    (``models``: the meta models built so far, by ``_model_key``)."""
     if kind is None:
         return {"arch": arch, "shape": shape, "skipped": skip}
-    why = _pending(arch)
-    if why is not None:
-        return {"arch": arch, "shape": shape, "mesh": kind, "ok": None, "pending": why}
-    if arch not in models:
-        models[arch] = _meta_model(ARCHS[arch])
-    return reckon_cell(arch, shape, kind, model=models[arch])
+    key = _model_key(arch, shape)
+    if key not in models:
+        models[key] = _meta_model(ARCHS[arch], shape)
+    return reckon_cell(arch, shape, kind, model=models[key])
 
 
 def reckon_all(arch=None, shape=None, mesh=None):
     """``(arch, shape, mesh kind, record)`` for every cell ``cells`` names;
-    each architecture's meta model is built once."""
+    each meta model (a GNN's, per shape) is built once."""
     models = {}
     for a, s, kind, skip in cells(arch, shape, mesh):
         yield a, s, kind, _record(a, s, kind, skip, models)
-
-
-def _pending(arch: str) -> str | None:
-    """Why a cell is not reckoned yet: GNN steps on a mesh (item 3)."""
-    if ARCHS[arch].family == "gnn":
-        return ("GNN train steps on a mesh (edge-sharded aggregates) are not ported yet: "
-                "ROADMAP Queue A item 3")
-    return None
 
 
 def main(argv=None) -> int:
@@ -589,10 +686,7 @@ def main(argv=None) -> int:
             print(f"[dryrun] {arch}:{shape} SKIP ({skip})", flush=True)
             continue
         done += 1
-        if result["ok"] is None:
-            print(f"[dryrun] {arch}:{shape} mesh={kind} PENDING ({result['pending']})",
-                  flush=True)
-        elif result["ok"]:
+        if result["ok"]:
             st, co = result["state_bytes_per_rank"], result["collectives"]
             print(f"[dryrun] {arch}:{shape} mesh={kind} OK "
                   f"state/dev={st['total'] / 2**30:.2f}GiB "

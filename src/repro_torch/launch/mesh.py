@@ -20,6 +20,10 @@ model=T)`` is ``jax.make_mesh((P, D, T), ("pod", "data", "model"))``: rank
 fastest, as ``jax.make_mesh`` orders devices.  The batch axes are ``("pod",
 "data")``: ``HostMesh.batch`` spans the P*D ranks that share this rank's
 model index, pod-major (the order of ``P(("pod", "data"))``).
+The flattened axis ``("pod", "data", "model")`` (``HostMesh.flat``) spans
+all P*D*T ranks in rank order: the GNN steps shard their graph arrays over
+it, as the reference's ``dp + ("model",)`` does (``launch.steps``); with
+the model index fastest its index is the rank itself.
 ``make_host_mesh()`` is ``(D, 1)`` over every rank, as the reference's is.
 ``make_production_mesh`` is the reference's 256/512-chip layout as sizes
 alone (``MeshLayout``): no process group, for the dry run's reckoning
@@ -51,7 +55,9 @@ class HostMesh:
     pod and model indices, ``model`` that of the T ranks that share its pod
     and data indices, ``pod`` that of the P ranks that share its data and
     model indices, and ``batch`` that of the P*D ranks that share its model
-    index (the batch axes ``("pod", "data")``; ``data`` itself where P = 1).
+    index (the batch axes ``("pod", "data")``; ``data`` itself where P = 1),
+    and ``flat`` that of all P*D*T ranks in rank order (the flattened axis
+    ``("pod", "data", "model")`` the GNN steps shard their graphs over).
     Each counts its own collectives in its ``stats``; a one-rank axis is a
     ``PartitionMesh`` of one rank, whose collectives are no calls.  ``shape``
     and ``axis_names`` name ``pod`` only where P > 1."""
@@ -60,6 +66,7 @@ class HostMesh:
     model: PartitionMesh | None = None
     pod: PartitionMesh | None = None
     batch: PartitionMesh | None = None
+    flat: PartitionMesh | None = None
 
     def __post_init__(self):
         if self.model is None:
@@ -70,6 +77,12 @@ class HostMesh:
             if self.pod.world_size > 1:
                 raise ValueError("a mesh with a pod axis needs its batch axis")
             object.__setattr__(self, "batch", self.data)
+        if self.flat is None:
+            if self.size != self.data.world_size:
+                raise ValueError("a mesh with a model or pod axis needs its flat axis")
+            d = self.data  # the data axis is every rank: its group, counted apart
+            object.__setattr__(self, "flat", PartitionMesh(d.world_size, d.rank, d.device,
+                                                           d.backend, group=d.group))
 
     @property
     def axis_names(self) -> tuple:
@@ -102,9 +115,10 @@ class HostMesh:
 
     def stats(self) -> dict:
         """Each axis's collective stats (``CollectiveStats.snapshot``):
-        ``data`` and ``model``, and where P > 1 also ``pod`` and ``batch``
-        (the pod x data group)."""
-        out = {"data": self.data.stats.snapshot(), "model": self.model.stats.snapshot()}
+        ``data``, ``model`` and ``flat``, and where P > 1 also ``pod`` and
+        ``batch`` (the pod x data group)."""
+        out = {"data": self.data.stats.snapshot(), "model": self.model.stats.snapshot(),
+               "flat": self.flat.stats.snapshot()}
         if self.pod.world_size > 1:
             out["pod"] = self.pod.stats.snapshot()
             out["batch"] = self.batch.stats.snapshot()
@@ -153,7 +167,8 @@ def make_mesh(*, pod: int = 1, data: int, model: int, device=None) -> HostMesh:
     Inside a group every rank must call it at once (each axis's groups are
     made by ``dist.new_group``, every group by every rank, in one order:
     model, data, pod, batch); an axis that spans every rank is the whole
-    group.  Outside a group only ``(1, 1, 1)`` exists."""
+    group, and so is the flattened one (``HostMesh.flat``).  Outside a
+    group only ``(1, 1, 1)`` exists."""
     p, d, t = int(pod), int(data), int(model)
     world = partition_mesh(device=device)
     if p * d * t != world.world_size:
@@ -174,16 +189,18 @@ def make_mesh(*, pod: int = 1, data: int, model: int, device=None) -> HostMesh:
         groups = [dist.new_group(m) for m in members]
         return PartitionMesh(size, index, world.device, world.backend, group=groups[mine])
 
+    flat = axis(world.world_size, r, [], 0)  # every rank, index r: the whole group
+
     m_axis = axis(t, k, [[rank_of(a, b, c) for c in range(t)] for a in range(p)
                          for b in range(d)], i * d + j)
     d_axis = axis(d, j, [[rank_of(a, b, c) for b in range(d)] for a in range(p)
                          for c in range(t)], i * t + k)
     if p == 1:
-        return HostMesh(d_axis, m_axis)
+        return HostMesh(d_axis, m_axis, flat=flat)
     p_axis = axis(p, i, [[rank_of(a, b, c) for a in range(p)] for b in range(d)
                          for c in range(t)], j * t + k)
     # the batch axes ("pod", "data"), pod-major: a PartitionMesh of its own
     # even where D = 1, so its collectives are counted apart from the pod's
     b_axis = axis(p * d, i * d + j, [[rank_of(a, b, c) for a in range(p) for b in range(d)]
                                      for c in range(t)], k)
-    return HostMesh(d_axis, m_axis, p_axis, b_axis)
+    return HostMesh(d_axis, m_axis, p_axis, b_axis, flat)

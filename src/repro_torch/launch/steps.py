@@ -59,9 +59,21 @@ divide them, the tables' vocab rows over ``model``), and retrieval's top k
 query ids replicated: each rank's local top k, gathered, merged by a
 stable descending sort, ties to the lower global id, as ``top_k``).  The
 decode state's cache is placed by the reference's ``cache_spec``
-(``models.transformer.cache_spec``: split-KV over ``model``).  GNN train
-steps on a mesh raise (ROADMAP Queue A item 3).  A one-rank mesh is
-``mesh=None``.
+(``models.transformer.cache_spec``: split-KV over ``model``).
+
+A GNN train step on a mesh runs on its flattened axis (``HostMesh.flat``:
+all R = P*D*T ranks in rank order, the reference's ``dp + ("model",)``):
+the parameters replicated (``gnn_param_specs``), the graph batch's edge,
+triplet and node arrays split into R contiguous blocks (``shard_batch``;
+their ids global), each rank's message passing on its own edges and node
+block (``models.gnn.GraphShard``).  A node-classification loss is the
+global masked mean (each rank's share: its numerator over the global
+count); a regression's per-graph readout sums the ranks' partials before
+the replicated MSE.  Every gradient on a rank is then a partial sum: they
+are summed, not averaged, over the flattened axis (``all_reduce_grads(...,
+average=False)``), and the step returns the global loss on every rank.  A
+graph whose nodes, edges or triplets R does not divide raises.  A one-rank
+mesh is ``mesh=None``.
 """
 
 from __future__ import annotations
@@ -81,6 +93,7 @@ from repro_torch.dist.sharding import (
     FSDP,
     all_reduce_grads,
     dp_size,
+    gnn_param_specs,
     lm_param_specs,
     mesh_sizes,
     place,
@@ -89,7 +102,7 @@ from repro_torch.dist.sharding import (
 )
 from repro_torch.kernels.segment_sum import segment_sum
 from repro_torch.models.common import model_device, top_k
-from repro_torch.models.gnn import MACE, PNA, DimeNet, MeshGraphNet
+from repro_torch.models.gnn import MACE, PNA, DimeNet, GraphShard, MeshGraphNet
 from repro_torch.models.moe import update_router_bias
 from repro_torch.models.recsys import DeepFM, deepfm_logits, deepfm_loss, retrieval_scores
 from repro_torch.models.transformer import (
@@ -131,14 +144,16 @@ def _pad(n: int, m: int = 512) -> int:
 
 
 def _train_step(loss_of: Callable, opt_cfg: AdamWConfig, after: Callable | None = None, *,
-                mesh=None, shard: Callable = shard_batch):
+                mesh=None, shard: Callable = shard_batch, flat: bool = False):
     """``(state, batch) -> (state, {"loss", "gnorm"})``: ``loss_of(model,
     batch) -> (loss, aux)`` differentiated by autograd, one AdamW update in
     place, then ``after(model, aux)`` (outside the gradient path).  On a
     ``mesh`` (of D > 1 data ranks: ``build_bundle`` passes None for one):
     ``shard(batch, mesh)`` first, the gradients averaged over the data
     ranks before the update, and the loss returned their mean (over the
-    batch axes, pod x data)."""
+    batch axes, pod x data).  ``flat`` (a GNN step on a mesh): the loss is
+    the rank's share of the global loss, which ``aux`` holds; the gradients
+    are summed over the flattened axis and ``aux`` is returned."""
     dp = mesh is not None
 
     def step(state, batch):
@@ -151,7 +166,10 @@ def _train_step(loss_of: Callable, opt_cfg: AdamWConfig, after: Callable | None 
             grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
         grads = {n: g for (n, _), g in zip(named, grads)}
         loss = loss.detach()
-        if dp:
+        if dp and flat:  # every rank's gradients are partial sums
+            grads = all_reduce_grads(grads, dict(named), mesh.flat, average=False)
+            loss = aux
+        elif dp:
             # the sum comes before the update: AdamW clips by the global norm
             placed = placement_of(model)
             grads = all_reduce_grads(grads, dict(named), mesh.batch,
@@ -319,15 +337,59 @@ def _gnn_sizes(shape: GraphShape, *, reduced: bool) -> dict:
     return dict(n=n, e=e, d_feat=shape.d_feat, n_graphs=1, n_trip=n_trip)
 
 
+def gnn_regression(cfg, shape: GraphShape) -> bool:
+    """Whether a GNN cell regresses per-graph targets (batched small graphs
+    and the geometric models) rather than classifying nodes."""
+    return shape.kind == "batched_small" or cfg.kind in ("mace", "dimenet")
+
+
+def gnn_model(cfg, sz: dict, regression: bool, *, generator=None, device="cuda"):
+    """A GNN bundle's model for ``cfg`` at the sizes ``sz``
+    (``_gnn_sizes``): node outputs of 1 (a regression) or ``N_CLASSES``
+    wide."""
+    d_out = 1 if regression else N_CLASSES
+    if cfg.kind == "pna":
+        return PNA(cfg, sz["d_feat"], d_out, generator=generator, device=device)
+    if cfg.kind == "meshgraphnet":
+        return MeshGraphNet(cfg, sz["d_feat"], 4, d_out, generator=generator, device=device)
+    if cfg.kind == "mace":
+        return MACE(cfg, generator=generator, device=device)
+    return DimeNet(cfg, 1, generator=generator, device=device)
+
+
+def _masked_nll(ll: torch.Tensor, w: torch.Tensor, axis) -> tuple:
+    """``-(ll * w).sum() / max(w.sum(), 1)`` as ``(this rank's share, the
+    global loss)``: on the flattened ``axis`` the share is the rank's
+    numerator over the count summed over the ranks (one all-reduce of the
+    pair), so the shares' gradients sum to the global loss's."""
+    num = -(ll * w).sum()
+    den = w.sum()
+    if axis is None or axis.world_size == 1:
+        loss = num / torch.clamp(den, min=1.0)
+        return loss, loss.detach()
+    both = axis.all_reduce(torch.stack([num.detach(), den]), op="sum")
+    den = torch.clamp(both[1], min=1.0)
+    return num / den, both[0] / den
+
+
 def _gnn_bundle(spec: ArchSpec, shape: GraphShape, *, reduced: bool, config,
-                device) -> StepBundle:
+                device, mesh) -> StepBundle:
     cfg = config or (reduced_config(spec) if reduced else spec.config)
     sz = _gnn_sizes(shape, reduced=reduced)
     kind = cfg.kind
     opt_cfg = AdamWConfig(weight_decay=0.0)
     geometric = kind in ("mace", "dimenet")
-    regression = shape.kind == "batched_small" or geometric
+    regression = gnn_regression(cfg, shape)
     n, e = sz["n"], sz["e"]
+    axis = None if mesh is None else mesh.flat
+    if axis is not None:
+        counts = {"nodes": n, "edges": e, **({"triplets": sz["n_trip"]} if kind == "dimenet"
+                                             else {})}
+        for what, count in counts.items():
+            if count % axis.world_size:
+                raise ValueError(f"{spec.arch_id}:{shape.name}: {count} {what} cannot be split "
+                                 f"over the {axis.world_size} ranks of the flattened axis")
+    shard = None if axis is None else GraphShard(axis, n)
 
     inputs = {
         "edge_src": InputSpec((e,), torch.int32),
@@ -353,45 +415,41 @@ def _gnn_bundle(spec: ArchSpec, shape: GraphShape, *, reduced: bool, config,
         inputs["label_mask"] = InputSpec((n,), torch.bool)
 
     def init_model(seed: int) -> torch.nn.Module:
-        g = _generator(device, seed)
-        d_out = 1 if regression else N_CLASSES
-        if kind == "pna":
-            return PNA(cfg, sz["d_feat"], d_out, generator=g, device=device)
-        if kind == "meshgraphnet":
-            return MeshGraphNet(cfg, sz["d_feat"], 4, d_out, generator=g, device=device)
-        if kind == "mace":
-            return MACE(cfg, generator=g, device=device)
-        return DimeNet(cfg, 1, generator=g, device=device)
+        model = gnn_model(cfg, sz, regression, generator=_generator(device, seed), device=device)
+        return _placed(model, gnn_param_specs, mesh)
 
     def forward(model, batch):
         edges = (batch["edge_src"], batch["edge_dst"])
-        mask = batch["edge_mask"]
+        kw = dict(edge_mask=batch["edge_mask"], shard=shard)
         if kind == "pna":
-            return model(batch["x"], *edges, edge_mask=mask)
+            return model(batch["x"], *edges, **kw)
         if kind == "meshgraphnet":
-            return model(batch["x"], batch["edge_feat"], *edges, edge_mask=mask)
+            return model(batch["x"], batch["edge_feat"], *edges, **kw)
         if kind == "mace":
-            return model(batch["species"], batch["positions"], *edges, edge_mask=mask,
-                         graph_id=batch["graph_id"], n_graphs=sz["n_graphs"])
+            return model(batch["species"], batch["positions"], *edges,
+                         graph_id=batch["graph_id"], n_graphs=sz["n_graphs"], **kw)
         return model(batch["species"], batch["positions"], *edges, batch["trip_kj"],
-                     batch["trip_ji"], edge_mask=mask, trip_mask=batch["trip_mask"],
-                     graph_id=batch["graph_id"], n_graphs=sz["n_graphs"])[:, 0]
+                     batch["trip_ji"], trip_mask=batch["trip_mask"],
+                     graph_id=batch["graph_id"], n_graphs=sz["n_graphs"], **kw)[:, 0]
 
     def loss_of(model, batch):
+        """``(this rank's share of the loss, the global loss)``."""
         out = forward(model, batch)
         if regression:
             if kind in ("pna", "meshgraphnet"):
                 # node outputs -> per-graph readout, summed by the kernel
-                per_graph = segment_sum(batch["graph_id"], out[:, 0], sz["n_graphs"])
-                return torch.mean((per_graph - batch["labels"]) ** 2), None
-            return torch.mean((out - batch["labels"]) ** 2), None
+                out = segment_sum(batch["graph_id"], out[:, 0], sz["n_graphs"])
+                if shard is not None:  # the ranks' partial sums, summed
+                    out = shard.total(out)
+            loss = torch.mean((out - batch["labels"]) ** 2)  # replicated
+            return loss, loss.detach()
         logp = torch.log_softmax(out.to(torch.float32), dim=-1)
         ll = torch.take_along_dim(logp, batch["labels"][:, None].long(), dim=1)[:, 0]
-        w = batch["label_mask"].to(torch.float32)
-        return -(ll * w).sum() / torch.clamp(w.sum(), min=1.0), None
+        return _masked_nll(ll, batch["label_mask"].to(torch.float32), axis)
 
     return StepBundle(
-        name=f"{spec.arch_id}:{shape.name}", step_fn=_train_step(loss_of, opt_cfg),
+        name=f"{spec.arch_id}:{shape.name}",
+        step_fn=_train_step(loss_of, opt_cfg, mesh=mesh, flat=True),
         abstract_inputs=inputs,
         init_state_fn=_train_init(init_model, opt_cfg),
         input_bounds={
@@ -399,6 +457,7 @@ def _gnn_bundle(spec: ArchSpec, shape: GraphShape, *, reduced: bool, config,
             "graph_id": sz["n_graphs"], "edge_src": n, "edge_dst": n,
             "trip_kj": e, "trip_ji": e,
         },
+        info={"kind": "train", "graph": dict(sz), "regression": regression},
     )
 
 
@@ -532,13 +591,9 @@ def build_bundle(arch_id: str, shape_name: str, *, reduced: bool = False, config
         if mesh.size == 1:
             mesh = None  # one rank: the one-device step, bit for bit
     device = model_device("cuda" if device is None else device)
-    if mesh is not None and spec.family == "gnn":
-        raise NotImplementedError(
-            f"{arch_id}: GNN train steps on a {tuple(mesh.shape.values())} mesh "
-            "(edge-sharded aggregates) are not ported yet: ROADMAP Queue A item 3")
     kw = dict(reduced=reduced, config=config, device=device)
     if spec.family == "lm":
         return _lm_bundle(spec, shape, mesh=mesh, **kw)
     if spec.family == "gnn":
-        return _gnn_bundle(spec, shape, **kw)
+        return _gnn_bundle(spec, shape, mesh=mesh, **kw)
     return _recsys_bundle(spec, shape, mesh=mesh, **kw)

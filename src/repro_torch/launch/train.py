@@ -18,9 +18,11 @@
     run on ``launch.mesh.make_mesh(data=ranks, model=model)``
     (``launch.steps``: each data rank its rows of the global batch, the
     state sharded by the rule tables, the gradients averaged over the data
-    ranks).  Outside a process group ``train(..., ranks=D, model=T)``
-    starts D * T ranks with ``dist.run_ranks`` (NCCL where each has a card
-    of its own, gloo otherwise) and returns rank 0's losses, step times
+    ranks; a GNN's graph batch split over all the ranks, the flattened axis,
+    its replicated state's partial gradients summed over them).  Outside a
+    process group ``train(..., ranks=D, model=T)`` starts D * T ranks
+    with ``dist.run_ranks`` (NCCL where each has a card of its own, gloo
+    otherwise) and returns rank 0's losses, step times
     and collective stats, and ``ranks_identical``: every rank's gathered
     final state equal bit for bit, read off per-tensor digests (no module
     comes back to the caller).  Rank 0 alone writes checkpoints, of the
@@ -178,7 +180,8 @@ def train(
     "resumed_from"}``, ``step_s`` each step's host seconds up to its loss
     on the host and ``resumed_from`` the checkpoint's step (or None);
     ``"final_state"`` too, except from ranks started here; inside a process
-    group also ``"ranks"`` and ``"stats"`` (the rank's collectives), and
+    group also ``"ranks"`` and ``"stats"``, ``"model_stats"`` and
+    ``"flat_stats"`` (the rank's collectives on each axis), and
     from ranks started here rank 0's values with ``"ranks_identical"``,
     ``"digests"`` and ``"backend"``."""
     kw = dict(arch=arch, shape=shape, steps=steps, reduced=reduced, ckpt_dir=ckpt_dir,
@@ -260,6 +263,7 @@ def _train_here(mesh, *, arch, shape, steps, reduced, ckpt_dir, ckpt_every, seed
     stragglers = 0
 
     def batch_for(step: int) -> dict:
+        """The global batch of ``step`` (the step takes the rank's share)."""
         if spec.family == "gnn":
             inputs = bundle.abstract_inputs
             n_nodes = (inputs.get("x") or inputs["species"]).shape[0]
@@ -319,7 +323,8 @@ def _train_here(mesh, *, arch, shape, steps, reduced, ckpt_dir, ckpt_every, seed
     if mesh is not None:
         mesh.barrier()  # the last checkpoint is on disk for every rank
         out.update(ranks=mesh.shape["data"], mesh=mesh.shape,
-                   stats=mesh.data.stats.snapshot(), model_stats=mesh.model.stats.snapshot())
+                   stats=mesh.data.stats.snapshot(), model_stats=mesh.model.stats.snapshot(),
+                   flat_stats=mesh.flat.stats.snapshot())
     return out
 
 

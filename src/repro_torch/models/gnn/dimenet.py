@@ -14,6 +14,17 @@ that order) and the triplets, renumbered to it, by ``ji``: the padding
 triplets carry ``ji = 0`` after the real ones, out of order.  Every sum --
 triplets onto edges, edges onto nodes, nodes onto graphs -- is then a
 kernel call over ascending ids.
+
+On ranks (``shard``: ``message_passing.GraphShard``) each rank holds a
+block of the nodes, the edges and the triplets.  The edges' messages live
+on the rank's block in its local destination order; laid rank by rank,
+those blocks are the edge layout every triplet is renumbered to (the ranks'
+inverse permutations gathered once a forward).  A triplet's ``kj`` message
+may live on another rank: each block gathers the projected messages
+``m @ down`` over the ranks, and its ``ji`` sums come back as the rank's
+edge block (reduce-scatter).  The edge vectors are gathered once for the
+triplets' geometry, the positions once for the edges', and the readout's
+per-graph partial sums are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -26,7 +37,7 @@ from repro_torch.configs.base import GNNConfig
 from repro_torch.kernels.segment_sum import segment_sum
 from repro_torch.models.common import init_dense, model_device
 from repro_torch.models.gnn import e3
-from repro_torch.models.gnn.message_passing import MLP, _sum, as_sorted_edges
+from repro_torch.models.gnn.message_passing import MLP, GraphShard, _sum, as_sorted_edges
 
 
 class DimeNetBlock(nn.Module):
@@ -83,22 +94,32 @@ class DimeNet(nn.Module):
         graph_id=None,
         n_graphs: int = 1,
         backend: str | None = None,
+        shard: GraphShard | None = None,
     ) -> torch.Tensor:
-        """``[n_graphs, d_out]`` graph outputs."""
+        """``[n_graphs, d_out]`` graph outputs (on ``shard``, of every rank's
+        nodes, for the rank's blocks of nodes, edges and triplets)."""
         x = self.cfg.extra
-        n = species.shape[0]
-        edges = as_sorted_edges(edge_src, edge_dst, n, edge_mask)
+        n = species.shape[0]  # the rank's block on a shard
+        edges = as_sorted_edges(edge_src, edge_dst, n if shard is None else shard.n, edge_mask)
         e = edges.n_edges
         dev = positions.device
-        # the triplets renumbered to the sorted edges, then ordered by ji
+        # the triplets renumbered to the sorted edges (on a shard, to the
+        # ranks' sorted blocks laid end to end), then ordered by ji
         rank = torch.empty_like(edges.perm)
         rank[edges.perm] = torch.arange(e, dtype=rank.dtype, device=dev)
+        e_all = e
+        if shard is not None:
+            every = shard.axis.all_gather(rank)  # [R, e]: each rank's own order
+            offsets = torch.arange(every.shape[0], dtype=rank.dtype, device=dev)[:, None] * e
+            rank = (every + offsets).reshape(-1)
+            e_all = rank.shape[0]
         ji = rank.index_select(0, trip_ji.long())
         ji, t_order = torch.sort(ji, stable=True)
         kj = rank.index_select(0, trip_kj.long().index_select(0, t_order))
         t_mask = None if trip_mask is None else trip_mask.index_select(0, t_order)
 
-        r_vec = positions.index_select(0, edges.dst_index) - positions.index_select(0, edges.src)
+        pos = positions if shard is None else shard.gather(positions)
+        r_vec = pos.index_select(0, edges.dst_index) - pos.index_select(0, edges.src)
         r = torch.linalg.norm(r_vec + 1e-12, dim=-1)
         rbf = e3.bessel_rbf(r, x["n_radial"], x["r_cut"]) * e3.cutoff_envelope(
             r, x["r_cut"]
@@ -107,16 +128,22 @@ class DimeNet(nn.Module):
             rbf = rbf * edges.mask.to(rbf.dtype)[:, None]
 
         h = self.embed_species[torch.clamp(species.long(), 0, 15)]
+        table = h if shard is None else shard.gather(h)
         m = self.embed_edge(torch.cat(
-            [edges.gather_src(h, backend=backend), edges.gather_dst(h, backend=backend), rbf], dim=-1))
+            [edges.gather_src(table, backend=backend), edges.gather_dst(table, backend=backend),
+             rbf], dim=-1))
 
         # triplet geometry: angle between edge ji and edge kj at shared vertex j
-        v_ji = r_vec.index_select(0, ji)
-        v_kj = -r_vec.index_select(0, kj)  # pointing j -> k
+        r_vec_all, r_all = r_vec, r
+        if shard is not None:  # every rank's edges, in the layout's order
+            r_vec_all = shard.gather(r_vec)
+            r_all = torch.linalg.norm(r_vec_all + 1e-12, dim=-1)
+        v_ji = r_vec_all.index_select(0, ji)
+        v_kj = -r_vec_all.index_select(0, kj)  # pointing j -> k
         cos_a = torch.sum(v_ji * v_kj, -1) / torch.clamp(
             torch.linalg.norm(v_ji, dim=-1) * torch.linalg.norm(v_kj, dim=-1), min=1e-9
         )
-        sbf = _angular_basis(cos_a, r.index_select(0, kj), x["n_spherical"], x["n_radial"],
+        sbf = _angular_basis(cos_a, r_all.index_select(0, kj), x["n_spherical"], x["n_radial"],
                              x["r_cut"])
         if t_mask is not None:
             sbf = sbf * t_mask.to(sbf.dtype)[:, None]
@@ -125,20 +152,27 @@ class DimeNet(nn.Module):
         for blk in self.blocks:
             # directional interaction: project m_kj down, modulate by angular
             # basis through the bilinear weights, aggregate onto edge ji, up-proj
-            mk = (m @ blk.down).index_select(0, kj)  # [T, nb]
+            down = m @ blk.down
+            if shard is not None:
+                down = shard.gather(down)
+            mk = down.index_select(0, kj)  # [T, nb]
             ang = sbf @ blk.sbf_w  # [T, nb]
-            agg = segment_sum(ji, mk * ang, e, sorted_ids=True, backend=backend)  # [E, nb]
+            agg = segment_sum(ji, mk * ang, e_all, sorted_ids=True, backend=backend)  # [E, nb]
+            if shard is not None:
+                agg = shard.scatter(agg)
             m = blk.post(m @ blk.w_msg + agg @ blk.up) + m
             # per-block output: edge messages -> destination nodes
             contrib = _sum(
-                m if edges.mask is None else m * edges.mask.to(m.dtype)[:, None], edges, backend
+                m if edges.mask is None else m * edges.mask.to(m.dtype)[:, None], edges, backend,
+                shard,
             )
             out = out + blk.out(contrib)
 
         site = self.out_final(out)  # [N, d_out]
         if graph_id is None:
             graph_id = torch.zeros((n,), dtype=torch.int64, device=dev)
-        return segment_sum(graph_id, site, n_graphs, backend=backend)
+        per_graph = segment_sum(graph_id, site, n_graphs, backend=backend)
+        return per_graph if shard is None else shard.total(per_graph)
 
 
 def build_triplets(edge_src, edge_dst, max_triplets: int):

@@ -12,6 +12,13 @@ see e3.py):
 Features are flat [N, C, 9] tensors indexed by the real-SH slot (l<=2).  The
 A-basis sum runs as one kernel call over ``[E, 9C]`` (the message reshaped),
 the readout as one over the graph ids.
+
+On ranks (``shard``: ``message_passing.GraphShard``) ``species`` and
+``positions`` are the rank's node block: the positions are gathered once a
+forward (both endpoints of an edge may lie on other ranks; no gradient),
+the features once a layer for the rank's edges, the A-basis comes back as
+the block's, and the readout's per-graph partial sums are summed over the
+ranks.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from repro_torch.configs.base import GNNConfig
 from repro_torch.kernels.segment_sum import segment_sum
 from repro_torch.models.common import init_dense, model_device
 from repro_torch.models.gnn import e3
-from repro_torch.models.gnn.message_passing import MLP, _sum, as_sorted_edges
+from repro_torch.models.gnn.message_passing import MLP, GraphShard, _sum, as_sorted_edges
 
 #: the l of each of the 9 real-SH slots
 L_OF_SLOT = (0, 1, 1, 1, 2, 2, 2, 2, 2)
@@ -83,15 +90,17 @@ class MACE(nn.Module):
 
     def forward(self, species: torch.Tensor, positions: torch.Tensor, edge_src, edge_dst=None,
                 *, edge_mask=None, graph_id=None, n_graphs: int = 1,
-                backend: str | None = None) -> torch.Tensor:
-        """Per-graph invariant energies ``[n_graphs]``."""
+                backend: str | None = None, shard: GraphShard | None = None) -> torch.Tensor:
+        """Per-graph invariant energies ``[n_graphs]`` (on ``shard``, of every
+        rank's nodes, for the rank's node block and edges)."""
         x = self.cfg.extra
-        n = species.shape[0]
+        n = species.shape[0]  # the rank's block on a shard
         c = self.cfg.d_hidden
-        edges = as_sorted_edges(edge_src, edge_dst, n, edge_mask)
+        edges = as_sorted_edges(edge_src, edge_dst, n if shard is None else shard.n, edge_mask)
         paths = coupling_paths(e3.gaunt_tensor(), positions.device)
 
-        r_vec = positions.index_select(0, edges.dst_index) - positions.index_select(0, edges.src)
+        pos = positions if shard is None else shard.gather(positions)
+        r_vec = pos.index_select(0, edges.dst_index) - pos.index_select(0, edges.src)
         r = torch.linalg.norm(r_vec + 1e-12, dim=-1)
         r_hat = r_vec / torch.clamp(r, min=1e-9)[:, None]
         ylm = e3.real_sh(r_hat)  # [E, 9]
@@ -109,8 +118,9 @@ class MACE(nn.Module):
             radial = radial_l[:, :, l_of_slot]  # broadcast per-l weight to slots
             # A-basis: couple edge harmonics with neighbor features, radially
             # weighted, summed over neighbors: one kernel call over [E, 9C]
-            msg = couple(ylm[:, None, :], edges.gather_src(h, backend=backend), paths) * radial
-            a = _sum(msg, edges, backend)  # [N, C, 9]
+            table = h if shard is None else shard.gather(h)
+            msg = couple(ylm[:, None, :], edges.gather_src(table, backend=backend), paths) * radial
+            a = _sum(msg, edges, backend, shard)  # [N, C, 9]
             # B-basis: correlation orders 1..3
             b1 = a
             b2 = couple(a, a, paths)
@@ -125,4 +135,5 @@ class MACE(nn.Module):
         site = self.readout(h[:, :, 0])[:, 0]  # invariant slot only
         if graph_id is None:
             graph_id = torch.zeros((n,), dtype=torch.int64, device=positions.device)
-        return segment_sum(graph_id, site, n_graphs, backend=backend)
+        per_graph = segment_sum(graph_id, site, n_graphs, backend=backend)
+        return per_graph if shard is None else shard.total(per_graph)

@@ -5,6 +5,11 @@ MLPs, sum aggregation, residual updates, 15 processor layers
 The edge state lives in destination order (``message_passing.sort_edges``):
 the edge features are permuted once a forward, and the node outputs come
 back in the caller's node order.
+
+On ranks (``shard``: ``message_passing.GraphShard``) the edge state stays
+on the rank's block of edges through every layer; each layer gathers the
+node table once for both ``h[src]`` and ``h[dst]``, and its aggregate
+comes back as the rank's node block, where the node MLP runs.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from repro_torch.configs.base import GNNConfig
 from repro_torch.models.common import model_device
 from repro_torch.models.gnn.message_passing import (
     MLP,
+    GraphShard,
     as_sorted_edges,
     layer_norm,
     segment_reduce,
@@ -47,17 +53,20 @@ class MeshGraphNet(nn.Module):
         self.to(device)
 
     def forward(self, x: torch.Tensor, e_feat: torch.Tensor, edge_src, edge_dst=None, *,
-                edge_mask=None, backend: str | None = None) -> torch.Tensor:
+                edge_mask=None, backend: str | None = None,
+                shard: GraphShard | None = None) -> torch.Tensor:
         """``[N, d_out]`` for node features ``x`` and per-edge features
-        ``e_feat`` (in the caller's edge order)."""
-        n = x.shape[0]
+        ``e_feat`` (in the caller's edge order); on ``shard``, the rank's
+        node block's for its block of ``x`` and its edges."""
+        n = x.shape[0] if shard is None else shard.n
         edges = as_sorted_edges(edge_src, edge_dst, n, edge_mask)
         h = layer_norm(self.node_enc(x))
         e = layer_norm(self.edge_enc(edges.permute(e_feat)))
         for layer in self.layers:
+            table = h if shard is None else shard.gather(h)
             e = e + layer.edge(torch.cat(
-                [e, edges.gather_src(h, backend=backend), edges.gather_dst(h, backend=backend)],
-                dim=-1))
-            agg = segment_reduce(e, edges, "sum", backend=backend)
+                [e, edges.gather_src(table, backend=backend),
+                 edges.gather_dst(table, backend=backend)], dim=-1))
+            agg = segment_reduce(e, edges, "sum", backend=backend, shard=shard)
             h = h + layer.node(torch.cat([h, agg], dim=-1))
         return self.decode(h)

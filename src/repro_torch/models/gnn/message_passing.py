@@ -20,6 +20,22 @@ runs over ascending ids:
     not ``index_select``'s atomic ``index_add_``, so a train step gives the
     same bits on every run.
 
+**On ranks** (``GraphShard``: the flattened axis of a mesh, R ranks) each
+rank holds a contiguous block of the edges and one of the nodes, the edge
+ids global.  A layer gathers the node table its edges read from every
+rank's block (``GraphShard.gather``: all-gather forward, reduce-scatter
+backward), computes its own edges' messages on its local ``SortedEdges``
+(sorted once a forward, over the global node ids), reduces them on the
+kernel into an ``[N, ...]`` partial, and sums the partials into its node
+block (``GraphShard.scatter``: reduce-scatter forward, all-gather
+backward).  Mean and std divide the summed sums by the summed degrees; max
+and min all-reduce the partial extrema (a rank with no edge into a node
+holds -inf / +inf there; the 0 fill comes after), and their backward
+splits a tie by the count summed over the ranks (``GraphShard.sum_ties``).
+No tensor is both replicated and partial, so every parameter's gradient
+on a rank is a partial sum, and their sum over the ranks is the one-rank
+gradient.
+
 Only the summation order differs from the reference, so outputs keep its
 values within float32 rounding.  Masked edges contribute nothing and degree
 counts exclude them; a segment with no (unmasked) edge reduces to 0 for
@@ -37,8 +53,55 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.sharding import (
+    PartitionMesh,
+    fsdp_gather,
+    reduce_from_model,
+    reduce_scatter_rows,
+)
 from repro_torch.kernels.segment_sum import gather_rows, segment_sum, sorted_segment_sum
 from repro_torch.models.common import init_dense
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GraphShard:
+    """A rank's share of a graph on the flattened axis ``axis`` (R ranks):
+    node block ``[rank * n / R, (rank + 1) * n / R)`` of the graph's ``n``
+    nodes, and a contiguous block of its edges (see the module docstring).
+    Every rank of ``axis`` calls each method at once."""
+
+    axis: PartitionMesh
+    n: int  # the graph's nodes, all ranks'
+
+    @property
+    def rows(self) -> int:
+        """The nodes in a rank's block."""
+        return self.n // self.axis.world_size
+
+    def block(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a whole ``[n, ...]`` tensor."""
+        lo = self.axis.rank * self.rows
+        return full[lo:lo + self.rows]
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's block of ``t`` laid end to end (node tables, and
+        DimeNet's edge tensors); the gradient reduce-scattered back
+        (``fsdp_gather``'s pair, along dim 0)."""
+        return fsdp_gather(t, self.axis, 0)
+
+    def scatter(self, partial: torch.Tensor) -> torch.Tensor:
+        """The rank's block of the ranks' summed ``[R * rows, ...]``
+        partials; the gradient all-gathered back."""
+        return reduce_scatter_rows(partial, self.axis)
+
+    def total(self, partial: torch.Tensor) -> torch.Tensor:
+        """A readout's partial sums summed over the ranks, the (replicated)
+        gradient passed through."""
+        return reduce_from_model(partial, self.axis)
+
+    def sum_ties(self, ties: torch.Tensor) -> torch.Tensor:
+        """An extremum's tie counts summed over the ranks (backward)."""
+        return self.axis.all_reduce(ties, op="sum")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -123,29 +186,38 @@ def _mask_weights(edges: SortedEdges, dtype) -> torch.Tensor:
     return edges.mask.to(dtype)[:, None]
 
 
-def _sum(x: torch.Tensor, edges: SortedEdges, backend) -> torch.Tensor:
-    return segment_sum(edges.dst, x, edges.n, sorted_ids=True, backend=backend)
+def _sum(x: torch.Tensor, edges: SortedEdges, backend,
+         shard: GraphShard | None = None) -> torch.Tensor:
+    """The per-destination sum of ``x`` on the kernel; on ``shard`` the
+    rank's node block of the ranks' summed partials."""
+    s = segment_sum(edges.dst, x, edges.n, sorted_ids=True, backend=backend)
+    return s if shard is None else shard.scatter(s)
 
 
-def degrees(edges: SortedEdges, *, backend: str | None = None) -> torch.Tensor:
-    """``[n]`` float32 count of unmasked in-edges: the kernel at D = 1."""
+def degrees(edges: SortedEdges, *, backend: str | None = None,
+            shard: GraphShard | None = None) -> torch.Tensor:
+    """``[n]`` float32 count of unmasked in-edges: the kernel at D = 1 (on
+    ``shard``, the rank's node block of the counts over every rank's
+    edges)."""
     if edges.mask is None:
         w = torch.ones(edges.n_edges, dtype=torch.float32, device=edges.dst.device)
     else:
         w = edges.mask.to(torch.float32)
-    return _sum(w, edges, backend)
+    return _sum(w, edges, backend, shard)
 
 
 def segment_mean(
     x: torch.Tensor, edges: SortedEdges, *, deg: torch.Tensor | None = None,
-    backend: str | None = None,
+    backend: str | None = None, shard: GraphShard | None = None,
 ) -> torch.Tensor:
     """Masked mean of ``x`` ([E, d], destination order) per destination;
-    ``deg`` (``degrees(edges)``) may be passed to reuse it."""
+    ``deg`` (``degrees(edges)``) may be passed to reuse it.  On ``shard``
+    the sums and the degrees are summed over the ranks before the
+    division."""
     if edges.mask is not None:
         x = x * _mask_weights(edges, x.dtype)
-    s = _sum(x, edges, backend)
-    c = degrees(edges, backend=backend) if deg is None else deg
+    s = _sum(x, edges, backend, shard)
+    c = degrees(edges, backend=backend, shard=shard) if deg is None else deg
     return s / torch.clamp(c, min=1.0)[:, None]
 
 
@@ -155,45 +227,59 @@ class _Extremum(torch.autograd.Function):
     extremum, as ``jax.ops.segment_max``'s is (``segment_reduce``'s own
     backward does not split a tie of more than two), gathered by the
     ascending destination and with the ties counted by the segment-sum
-    kernel -- no atomics."""
+    kernel -- no atomics.  On a ``shard`` the rank's partial extrema are
+    all-reduced (every rank needs every node's extremum to find its own
+    edges' hits), the rank's node block returned; backward, the blocks'
+    gradients all-gathered and each tie split by its count summed over the
+    ranks."""
 
     @staticmethod
-    def forward(ctx, x, dst, counts, n_valid, kind, backend):
+    def forward(ctx, x, dst, counts, n_valid, kind, backend, shard=None):
         out = torch.segment_reduce(x[:n_valid], kind, lengths=counts, unsafe=True)
+        if shard is not None:  # -inf / +inf where a rank has no edge
+            out = shard.axis.all_reduce(out, op=kind)
         ctx.save_for_backward(x, dst, out)
-        ctx.n_valid, ctx.backend = n_valid, backend
-        return out
+        ctx.n_valid, ctx.backend, ctx.shard = n_valid, backend, shard
+        return out if shard is None else shard.block(out).clone()
 
     @staticmethod
     def backward(ctx, grad_out):
         x, dst, out = ctx.saved_tensors
-        nv = ctx.n_valid
+        nv, shard = ctx.n_valid, ctx.shard
+        if shard is not None:
+            grad_out = shard.gather(grad_out)
         ids = dst[:nv]
         hit = x[:nv] == out.index_select(0, ids)
         flat = hit.reshape(nv, -1).to(torch.float32)
         ties = sorted_segment_sum(ids, flat, out.shape[0], assume_sorted=True,
                                   backend=ctx.backend).reshape(out.shape)
+        if shard is not None:
+            ties = shard.sum_ties(ties)
         share = grad_out / torch.clamp(ties, min=1.0).to(grad_out.dtype)
         grad = torch.zeros_like(x)
         grad[:nv] = torch.where(hit, share.index_select(0, ids), torch.zeros((), dtype=x.dtype,
                                                                               device=x.device))
-        return grad, None, None, None, None, None
+        return grad, None, None, None, None, None, None
 
 
-def _extremum(x: torch.Tensor, edges: SortedEdges, kind: str, backend) -> torch.Tensor:
-    out = _Extremum.apply(x, edges.dst, edges.counts, edges.n_valid,
-                          "max" if kind == "max" else "min", backend)
+def _extremum(x: torch.Tensor, edges: SortedEdges, kind: str, backend,
+              shard: GraphShard | None = None) -> torch.Tensor:
+    args = (x, edges.dst, edges.counts, edges.n_valid, "max" if kind == "max" else "min",
+            backend)
+    out = _Extremum.apply(*args) if shard is None else _Extremum.apply(*args, shard)
     return torch.where(torch.isfinite(out), out, torch.zeros((), dtype=out.dtype, device=out.device))
 
 
 def segment_reduce(
     x: torch.Tensor, edges: SortedEdges, kind: str, *, deg: torch.Tensor | None = None,
-    backend: str | None = None,
+    backend: str | None = None, shard: GraphShard | None = None,
 ) -> torch.Tensor:
     """``kind`` in sum / mean / max / min / std of ``x`` ([E, d], in
     ``edges``' destination order) per destination, masked as the reference
     masks: max and min fill masked edges with -inf / +inf, the others
-    multiply by the mask here (and the means once more)."""
+    multiply by the mask here (and the means once more).  On ``shard``,
+    ``x`` is the rank's edges' and the result the rank's node block of the
+    reduction over every rank's edges (``deg``: the block's degrees)."""
     if edges.mask is not None:
         if kind in ("max", "min"):
             fill = float("-inf") if kind == "max" else float("inf")
@@ -202,15 +288,15 @@ def segment_reduce(
         else:
             x = x * _mask_weights(edges, x.dtype)
     if kind == "sum":
-        return _sum(x, edges, backend)
+        return _sum(x, edges, backend, shard)
     if kind == "mean":
-        return segment_mean(x, edges, deg=deg, backend=backend)
+        return segment_mean(x, edges, deg=deg, backend=backend, shard=shard)
     if kind in ("max", "min"):
-        return _extremum(x, edges, kind, backend)
+        return _extremum(x, edges, kind, backend, shard)
     if kind == "std":
-        deg = degrees(edges, backend=backend) if deg is None else deg
-        m = segment_mean(x, edges, deg=deg, backend=backend)
-        m2 = segment_mean(x * x, edges, deg=deg, backend=backend)
+        deg = degrees(edges, backend=backend, shard=shard) if deg is None else deg
+        m = segment_mean(x, edges, deg=deg, backend=backend, shard=shard)
+        m2 = segment_mean(x * x, edges, deg=deg, backend=backend, shard=shard)
         return torch.sqrt(torch.clamp(m2 - m * m, min=0.0) + 1e-6)
     raise ValueError(kind)
 

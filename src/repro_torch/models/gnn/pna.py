@@ -9,6 +9,12 @@ Where the reference fuses mean and std into one mean of ``[m, m*m]``
 (``pna.py:64-70``), the port makes the same sums column by column in two
 kernel calls, over ``m`` and ``m*m``, without the ``[E, 2d]``
 concatenation; the degree is summed once a forward and divides both.
+
+On ranks (``shard``: ``message_passing.GraphShard``) ``x`` is the rank's
+node block and the edges its own: each layer's message MLP runs on the
+block, its output gathered for the edges; the aggregates come back as the
+block's (sums and degrees summed over the ranks before they divide), and
+the post MLP, residual and layer norm run on the block.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from repro_torch.configs.base import GNNConfig
 from repro_torch.models.common import model_device
 from repro_torch.models.gnn.message_passing import (
     MLP,
+    GraphShard,
     SortedEdges,
     _mask_weights,
     _sum,
@@ -64,17 +71,23 @@ class PNA(nn.Module):
         }
 
     def layer(self, layer: PNALayer, h: torch.Tensor, h_src: torch.Tensor, edges: SortedEdges,
-              deg: torch.Tensor, scaler_fns: dict, backend) -> torch.Tensor:
+              deg: torch.Tensor, scaler_fns: dict, backend,
+              shard: GraphShard | None = None) -> torch.Tensor:
         """One PNA layer: ``h_src`` is the table ``edges.src`` indexes (``h``
-        itself, or ``h`` with halo rows on a shard)."""
-        m = edges.gather_src(layer.msg(h_src), backend=backend)  # [E, d], destination order
+        itself, or ``h`` with halo rows on a shard); on ``shard``, ``h``'s
+        block, whose messages every rank's are gathered with."""
+        u = layer.msg(h_src)
+        if shard is not None:
+            u = shard.gather(u)
+        m = edges.gather_src(u, backend=backend)  # [E, d], destination order
         agg_kinds = list(self.cfg.extra["aggregators"])
         per_kind: dict[str, torch.Tensor] = {}
         if "mean" in agg_kinds and "std" in agg_kinds:
-            per_kind["mean"], per_kind["std"] = self._mean_std(m, edges, deg, backend)
+            per_kind["mean"], per_kind["std"] = self._mean_std(m, edges, deg, backend, shard)
         for kind in agg_kinds:
             if kind not in per_kind:
-                per_kind[kind] = segment_reduce(m, edges, kind, deg=deg, backend=backend)
+                per_kind[kind] = segment_reduce(m, edges, kind, deg=deg, backend=backend,
+                                                shard=shard)
         del m
         aggs = [scaler_fns[s](per_kind[kind])
                 for kind in agg_kinds for s in self.cfg.extra["scalers"]]
@@ -82,31 +95,34 @@ class PNA(nn.Module):
         return layer_norm(h)
 
     @staticmethod
-    def _mean_std(m, edges: SortedEdges, deg, backend):
+    def _mean_std(m, edges: SortedEdges, deg, backend, shard=None):
         """The reference's fused mean of ``[m, m*m]`` as two sums of the
         same columns; ``m*m`` is made once and freed after its sum."""
         c = torch.clamp(deg, min=1.0)[:, None]
         if edges.mask is None:
-            mean = _sum(m, edges, backend) / c
-            mean_sq = _sum(m * m, edges, backend) / c
+            mean = _sum(m, edges, backend, shard) / c
+            mean_sq = _sum(m * m, edges, backend, shard) / c
         else:
             # the reference masks the concatenation twice: in
             # segment_reduce, then in segment_mean
             w = _mask_weights(edges, m.dtype)
-            mean = _sum(m * w * w, edges, backend) / c
-            mean_sq = _sum(m * m * w * w, edges, backend) / c
+            mean = _sum(m * w * w, edges, backend, shard) / c
+            mean_sq = _sum(m * m * w * w, edges, backend, shard) / c
         std = torch.sqrt(torch.clamp(mean_sq - mean * mean, min=0.0) + 1e-6)
         return mean, std
 
     def forward(self, x: torch.Tensor, edge_src, edge_dst=None, *, edge_mask=None,
-                avg_log_degree: float = 2.0, backend: str | None = None) -> torch.Tensor:
+                avg_log_degree: float = 2.0, backend: str | None = None,
+                shard: GraphShard | None = None) -> torch.Tensor:
         """``[N, d_out]`` node outputs for ``x`` ``[N, d_in]`` over the edges
-        (or a ``SortedEdges`` from ``sort_edges`` as ``edge_src``)."""
-        n = x.shape[0]
+        (or a ``SortedEdges`` from ``sort_edges`` as ``edge_src``); on
+        ``shard``, the rank's node block's for its block of ``x`` over its
+        edges."""
+        n = x.shape[0] if shard is None else shard.n
         edges = as_sorted_edges(edge_src, edge_dst, n, edge_mask)
         h = self.encode(x)
-        deg = degrees(edges, backend=backend)
+        deg = degrees(edges, backend=backend, shard=shard)
         scaler_fns = self.scalers(deg, avg_log_degree)
         for layer in self.layers:
-            h = self.layer(layer, h, h, edges, deg, scaler_fns, backend)
+            h = self.layer(layer, h, h, edges, deg, scaler_fns, backend, shard)
         return self.decode(h)

@@ -62,7 +62,7 @@ from repro_torch.ckpt import ckpt_path, latest_step
 from repro_torch.configs import ARCHS
 from repro_torch.configs.registry import reduced_config
 from repro_torch.convert import train_state_from_numpy
-from repro_torch.data.synthetic import make_batch, shard_batch
+from repro_torch.data.synthetic import graph_batch, make_batch, shard_batch
 from repro_torch.dist import PartitionMesh, run_ranks
 from repro_torch.dist.sharding import (
     all_reduce_grads,
@@ -463,12 +463,25 @@ def test_dispatch_groups_split_the_global_groups():
 
 
 @pytest.mark.parametrize("arch, shape, what", [
-    ("pna", "full_graph_sm", "item 3"), ("meshgraphnet", "minibatch_lg", "item 3"),
-    ("mace", "molecule", "item 3"), ("dimenet", "molecule", "item 3"),
+    ("pna", "full_graph_sm", "512 nodes"), ("meshgraphnet", "minibatch_lg", "512 nodes"),
+    ("mace", "molecule", "512 nodes"), ("dimenet", "molecule", "512 nodes"),
 ])
 def test_bundles_not_on_the_data_axis_raise_on_ranks(arch, shape, what):
-    with pytest.raises(NotImplementedError, match=what):
-        steps.build_bundle(arch, shape, reduced=True, mesh=_fake_mesh(2, 0))
+    """The GNN bundles run on the flattened axis: on a 2-rank mesh each
+    builds, places its (replicated) state and shards its graph batch over
+    the ranks; on 3 ranks, which cannot split the graph, it raises."""
+    tb = steps.build_bundle(arch, shape, reduced=True, mesh=_fake_mesh(2, 1))
+    state = tb.init_state_fn(0)
+    assert all(ax is None for spec in state["params"].placement.specs.values() for ax in spec)
+    inputs = tb.abstract_inputs
+    n = (inputs.get("x") or inputs["species"]).shape[0]
+    batch = graph_batch(inputs, seed=0, step=0, n_nodes=n, device="cpu")
+    mine = shard_batch(batch, _fake_mesh(2, 1))
+    half = inputs["edge_src"].shape[0] // 2
+    assert torch.equal(mine["edge_src"], batch["edge_src"][half:])
+    assert mine["label_mask" if "label_mask" in batch else "graph_id"].shape[0] == n // 2
+    with pytest.raises(ValueError, match=what):
+        steps.build_bundle(arch, shape, reduced=True, mesh=_fake_mesh(3, 0))
 
 
 def test_one_rank_mesh_is_the_one_device_step():

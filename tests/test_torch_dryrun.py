@@ -115,6 +115,8 @@ COUNT_CELLS = (
     ("mixtral-8x22b", "long_500k"), ("deepseek-v3-671b", "train_4k"),
     ("deepseek-v3-671b", "prefill_32k"), ("deepseek-v3-671b", "decode_32k"),
     ("deepfm", "train_batch"), ("deepfm", "serve_p99"), ("deepfm", "retrieval_cand"),
+    ("pna", "full_graph_sm"), ("meshgraphnet", "minibatch_lg"), ("mace", "molecule"),
+    ("dimenet", "molecule"),
 )
 MESHES = ((1, 2), (2, 1), (2, 2), POD_MESH)
 
@@ -573,9 +575,10 @@ def test_run_cell_on_ranks_returns_measured_beside_derived():
                                      device="cpu")
     assert len(ranks) == 2 and all(r["matches"] for r in ranks)
     assert ranks[0]["derived"]["calls"]["model"] == {"all_reduce": 2}
-    with pytest.raises(Exception, match="Queue A item 3"):
-        dryrun.run_cell_on_ranks("pna", "full_graph_sm", (2, 1), timeout=RANK_TIMEOUT,
-                                 device="cpu")
+    ranks = dryrun.run_cell_on_ranks("pna", "full_graph_sm", (2, 1), timeout=RANK_TIMEOUT,
+                                     device="cpu")
+    assert len(ranks) == 2 and all(r["matches"] for r in ranks)
+    assert ranks[0]["derived"]["calls"]["data"] == {} and ranks[0]["derived"]["calls"]["flat"]
 
 
 def test_run_cell_on_ranks_defaults_to_the_card(monkeypatch):
@@ -610,7 +613,8 @@ def _standin(dims: tuple):
 
 def _reckoned_cells():
     return [(a, s, m) for a in ("tinyllama-1.1b", "mixtral-8x22b", "deepseek-v3-671b",
-                                "granite-3-8b", "mistral-nemo-12b", "deepfm")
+                                "granite-3-8b", "mistral-nemo-12b", "deepfm", "pna",
+                                "meshgraphnet", "mace", "dimenet")
             for s in ARCHS[a].shape_names for m in ("single", "multi")]
 
 
@@ -680,7 +684,10 @@ def test_cli_writes_cells_pending_gnn_and_skips_and_resumes(tmp_path, capsys):
     assert dryrun.main(["--arch", "pna", "--shape", "molecule", "--mesh", "single",
                         "--out", out]) == 0
     rec = json.loads((tmp_path / "pna__molecule__single.json").read_text())
-    assert rec["ok"] is None and "Queue A item 3" in rec["pending"]
+    assert rec["ok"] is True and rec["state_bytes_per_rank"]["cache"] == 0
+    assert rec["state_bytes_per_rank"]["opt"] == 2 * rec["state_bytes_per_rank"]["params"] + 4
+    flat = rec["collectives"]["per_axis"]["calls"]["flat"]
+    assert set(flat) == {"all_gather", "reduce_scatter", "all_reduce"}
     assert dryrun.main(["--arch", "tinyllama-1.1b", "--shape", "long_500k", "--out", out]) == 0
     rec = json.loads((tmp_path / "tinyllama-1.1b__long_500k__skip.json").read_text())
     assert rec["skipped"] == ARCHS["tinyllama-1.1b"].skip_shapes["long_500k"]
