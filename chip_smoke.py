@@ -31,25 +31,35 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 took; timed beside its bound and SDPA.
   4. lm      -- the LM serving path (``launch.steps`` prefill and decode
                 bundles over ``models.transformer``), each model built from
-                --seed in bfloat16 at its published widths: TinyLlama-1.1B
-                (22 layers) and Mixtral-8x22B cut to 2 of its 56 layers (a
-                window of 4,096, MoE top-2).  One 32,768-token prompt
-                (prefill_32k's length, batch cut from 32 to 1) through the
-                prefill step, with the flash launch counts at 0 just before:
-                every GQA layer must launch the TMA/wgmma kernel once; timed
-                (median of 3) and its peak read.  Held: layer 0's attention,
-                kernel against the plain version on three row blocks (as
-                phase 3, with a window 64 keys short that must fail); the
+                --seed in bfloat16 at its published widths (its build timed
+                and its peak read): TinyLlama-1.1B (22 layers), Mixtral-8x22B
+                cut to 2 of its 56 layers (a window of 4,096, MoE top-2),
+                Mistral-NeMo-12B and Granite-3-8B (40 layers each) and
+                DeepSeek-V3 cut to 4 of its 61 layers (its 3 dense layers
+                and 1 MoE layer of 256 experts top-8; MLA, MTP).  One
+                32,768-token prompt (prefill_32k's length, batch cut from 32
+                to 1) through the prefill step, with the flash launch counts
+                at 0 just before: every GQA layer must launch the TMA/wgmma
+                kernel once, an MLA layer none; timed (TinyLlama and Mixtral:
+                median of 3; the others once, after the counted call) and
+                its peak and its MoE layers' dropped pairs read.  Held:
+                layer 0's GQA attention, kernel against the plain version on
+                three row blocks (as phase 3, with a window 64 keys short
+                that must fail; DeepSeek-V3's plain MLA layer is timed); the
                 whole model's last-position logits at S = 4,096, ``cuda``
                 against ``torch``, in float32 within 1e-3 of their rms (a
-                window 64 keys short must fail), and TinyLlama's bfloat16
+                window 64 keys short must fail; DeepSeek-V3's reported: both
+                backends run the same plain MLA), and TinyLlama's bfloat16
                 logits within 0.25 of their rms (the short window must fail
-                too; Mixtral's bfloat16 distance is reported); decode replay
-                against the forward at S = 64 in float32 within 1e-3 of the
-                logits' rms (a replay one cache slot late must fail).
-                TinyLlama's decode step at 8 sequences (cut from
-                128) against a 32,768-slot cache, 16 greedy tokens timed.
-                Then ``serve_batch`` at its reduced config.
+                too; the others' bfloat16 distance is reported); decode
+                replay against the forward at S = 64 in float32 within 1e-3
+                of the logits' rms (a replay one cache slot late must fail),
+                the float32 model's build timed and its peak read.  The
+                decode step at 8 sequences (cut from 128) against a
+                32,768-slot cache, 16 greedy tokens timed (all but Mixtral).
+                DeepSeek-V3's loss with its MTP block at 4,096 tokens
+                (finite; each MoE layer's loads sum to 1 within 1e-6).  Then
+                ``serve_batch`` at its reduced config.
   5. recsys  -- DeepFM at its published config (39 fields x 1,000,000 rows
                 x 10, float32): serve_bulk's scores for 262,144 requests and
                 retrieval_cand's top 100 of 1,000,000 candidates, each held
@@ -322,6 +332,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -414,8 +425,9 @@ from repro_torch.launch.train import (  # noqa: E402
     train,
 )
 from repro_torch.models import attention as lm_attention  # noqa: E402
-from repro_torch.models.attention import gqa_attend, gqa_qkv  # noqa: E402
+from repro_torch.models.attention import gqa_attend, gqa_qkv, mla_forward  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
+from repro_torch.models.moe import _capacity, _n_groups, moe_ffn_groups, route  # noqa: E402
 from repro_torch.models.gnn import (  # noqa: E402
     MACE,
     PNA,
@@ -570,8 +582,35 @@ FLASH_CHECK_ROWS = 512
 FLASH_CONTROL_SHORT = 64
 #: the lm phase: each model at its published widths (configs/*.py), built
 #: from --seed in bfloat16: (arch, layers kept, or None for all).  Mixtral's
-#: 141 B parameters do not fit one card, so its depth is cut, never a width.
-LM_MODELS = (("tinyllama-1.1b", None), ("mixtral-8x22b", 2))
+#: 141 B and DeepSeek-V3's 671 B parameters do not fit one card, so their
+#: depth is cut, never a width: DeepSeek-V3 keeps its 3 dense layers and 1
+#: MoE layer (and its MTP block, which the prefill does not run).
+LM_MODELS = (("tinyllama-1.1b", None), ("mixtral-8x22b", 2), ("mistral-nemo-12b", None),
+             ("granite-3-8b", None), ("deepseek-v3-671b", 4))
+#: the models whose prefill the model_axis phase holds on ranks
+#: (PREFILL_REFS); their prefill is timed as a median of 3 and profiled.
+#: The others are timed once after the counted call, and of them only the
+#: MLA model is profiled (its attention is plain PyTorch, no kernel)
+LM_RANKED = ("tinyllama-1.1b", "mixtral-8x22b")
+#: decode_32k runs for these; the first fills DECODE_REFS for serve_mesh
+LM_DECODED = ("tinyllama-1.1b", "mistral-nemo-12b", "granite-3-8b", "deepseek-v3-671b")
+#: DeepSeek-V3's loss with its MTP block: ``lm_loss_and_stats``'s forward at
+#: train_4k's S, batch 1, bfloat16; the loss and the MTP term (the reference's
+#: weight MTP_WEIGHT, models/transformer.py) finite, each MoE layer's loads
+#: summing to 1 within LM_LOADS_TOL; the dropped (token, k) pairs reported
+LM_MTP_S, MTP_WEIGHT, LM_LOADS_TOL = 4096, 0.3, 1e-6
+#: DeepSeek-V3's MoE layer at the 32k prefill's token count, where its
+#: [G, E*C, D] dispatch tensors hold more than 2**31 elements (32 x 10,240
+#: x 7,168): the layer's output on seeded inputs (each token a shared
+#: direction plus its own, so that popular experts overflow their capacity,
+#: as the model's hidden states make them do) for the first and the last
+#: dispatch group's tokens (the last group's slots lie past element 2**31),
+#: against a float32 reference built expert by expert from ``route``'s kept
+#: pairs and the shared expert: the rms of the difference within
+#: MOE_BIG_SHARE of the reference's rms (0.0046 read on an H100 with
+#: unshared inputs, about a quarter of it); the control, the same reference
+#: with the dropped pairs added back, must miss it
+MOE_BIG_SHARE, MOE_BIG_ELEMENTS = 0.02, 2**31
 #: prefill_32k's length at batch 1 (its published batch is 32); decode_32k's
 #: cache at 8 sequences (published: 128), 16 greedy tokens
 LM_PREFILL_S, LM_PREFILL_BATCH = 32768, 1
@@ -803,6 +842,18 @@ def _median_ms(fn, reps: int) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return float(np.median(times))
+
+
+def _once_ms(fn) -> float:
+    """One call's time by CUDA events, with no warm-up: for a call the
+    caller has already run at this shape."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop)
 
 
 def _back_to_back_ms(fn, reps: int) -> float:
@@ -1400,6 +1451,150 @@ def _lm_layer_attention(model, tokens) -> dict:
     }
 
 
+def _lm_layer_mla(model, tokens) -> dict:
+    """Layer 0's MLA at the prefill's shape, as the model calls it: plain
+    PyTorch on every device (the reference's MLA reaches no kernel), timed
+    once between CUDA events (the prefill has run it at this shape)."""
+    cfg = model.cfg
+    layer = model.stacks()[0][1][0]
+    with torch.inference_mode():
+        x = rms_norm(model.embed[tokens], layer.attn_norm)
+        ms = _once_ms(lambda: mla_forward(layer.attn, cfg, x))
+    m = cfg.mla
+    return {"case": f"{cfg.name}_layer0_mla_{tokens.shape[1]}", "route": "plain torch",
+            "heads": cfg.n_heads, "kv_lora_rank": m.kv_lora_rank,
+            "qk_dim": m.qk_nope_dim + m.qk_rope_dim, "v_dim": m.v_head_dim,
+            "q_tile": lm_attention._MLA_Q_TILE, "key_chunk": lm_attention._ATTN_CHUNK, "ms": ms}
+
+
+@contextlib.contextmanager
+def _dropped_pairs():
+    """While inside, every MoE layer of ``models.transformer`` first counts
+    the (token, k) pairs its routing drops (``moe.route(...).kept()`` on the
+    layer's own input), then computes as before; yields the list of counts,
+    one a layer call."""
+    import repro_torch.models.transformer as transformer
+
+    counts, inner = [], transformer.moe_ffn_groups
+
+    def counting(p, cfg, x, *, mesh=None, replicated=False):
+        kept = route(p, cfg, x, mesh, replicated=replicated).kept()
+        counts.append({"tokens": kept.shape[0], "pairs": kept.numel(),
+                       "dropped": int((~kept).sum())})
+        return inner(p, cfg, x, mesh=mesh, replicated=replicated)
+
+    transformer.moe_ffn_groups = counting
+    try:
+        yield counts
+    finally:
+        transformer.moe_ffn_groups = inner
+
+
+def _lm_mtp(model, device, seed: int) -> dict:
+    """DeepSeek-V3's training loss with its MTP block, forward only, at
+    LM_MTP_S tokens (see LM_MTP_S): the MTP term is the loss less the same
+    model's loss with the block switched off, over MTP_WEIGHT."""
+    cfg = model.cfg
+    tokens = torch.randint(0, cfg.vocab, (1, LM_MTP_S + 1), generator=_gen(device, seed + 5),
+                           device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode(), _dropped_pairs() as drops:
+        loss, stats = lm_loss_and_stats(model, tokens)
+        torch.cuda.synchronize()
+    loss_s = time.perf_counter() - t0
+    model.cfg = dataclasses.replace(cfg, mtp_depth=0)
+    try:
+        with torch.inference_mode():
+            bare, _ = lm_loss_and_stats(model, tokens)
+    finally:
+        model.cfg = cfg
+    loads = stats["moe_loads"].float()
+    sums = loads.sum(dim=-1).tolist()
+    res = {"s": LM_MTP_S, "batch": 1, "dtype": str(model.embed.dtype)[6:],
+           "loss": float(loss), "loss_without_mtp": float(bare),
+           "mtp_loss": float((loss - bare) / MTP_WEIGHT), "loss_s": loss_s,
+           "moe_loads_sum": sums, "moe_loads_max": loads.max(dim=-1).values.tolist(),
+           "dropped_pairs": drops}
+    _check(all(np.isfinite([res["loss"], res["mtp_loss"]])) and res["mtp_loss"] > 0,
+           f"lm {cfg.name}: the loss with MTP is not finite ({res})")
+    _check(len(sums) == cfg.n_moe_layers and all(abs(x - 1.0) <= LM_LOADS_TOL for x in sums),
+           f"lm {cfg.name}: MoE loads sum to {sums}, not 1 within {LM_LOADS_TOL}")
+    return res
+
+
+def _dispatch_elements(cfg, t: int) -> int:
+    """The elements of one MoE layer's ``[G, E*C, D]`` dispatch tensors at
+    ``t`` tokens on one rank."""
+    g = _n_groups(t)
+    return g * cfg.moe.n_experts * _capacity(t // g, cfg.moe) * cfg.d_model
+
+
+def _moe_big_check(model, t: int, device, seed: int) -> dict:
+    """The first MoE layer at ``t`` tokens, held as MOE_BIG_SHARE says."""
+    cfg, mc = model.cfg, model.cfg.moe
+    p = model.moe_layers[0].moe
+    gen = _gen(device, seed + 6)
+    x = torch.randn((t, cfg.d_model), generator=gen, device=device)
+    x = (x + torch.randn(cfg.d_model, generator=gen, device=device)).to(model.embed.dtype)
+    with torch.inference_mode():
+        r = route(p, mc, x)
+        y = moe_ffn_groups(p, mc, x)[0]
+        rows = torch.cat([torch.arange(r.t_loc), torch.arange(t - r.t_loc, t)]).to(device)
+        kept = r.kept()[rows]
+        idx, prob = r.top_idx.reshape(t, -1)[rows], r.probs.reshape(t, -1)[rows]
+        xs = x[rows].float()
+        shared = torch.zeros_like(xs)
+        if mc.n_shared:
+            sh = p.shared
+            shared += (F.silu(xs @ sh.w_gate.float()) * (xs @ sh.w_up.float())) @ \
+                sh.w_down.float()
+        ref, every = shared.clone(), shared
+        for e in range(mc.n_experts):
+            w_all = (prob * (idx == e)).sum(-1)
+            hit = w_all.nonzero()[:, 0]
+            if hit.numel() == 0:
+                continue
+            xe = xs[hit]
+            ye = (F.silu(xe @ p.we_gate[e].float()) * (xe @ p.we_up[e].float())) @ \
+                p.we_down[e].float()
+            w_kept = (prob * (idx == e) * kept).sum(-1)[hit]
+            ref[hit] += w_kept[:, None] * ye
+            every[hit] += w_all[hit][:, None] * ye
+        rms = float(ref.square().mean().sqrt())
+        got = y[rows].float()
+        share = float((got - ref).square().mean().sqrt()) / rms
+        control = float((got - every).square().mean().sqrt()) / rms
+    elements = _dispatch_elements(cfg, t)
+    res = {"tokens": t, "groups": r.g, "capacity": r.cap, "dispatch_elements": elements,
+           "last_group_first_element": (r.g - 1) * mc.n_experts * r.cap * cfg.d_model,
+           "checked_tokens": rows.numel(), "dropped_pairs_checked": int((~kept).sum()),
+           "rms_share": share, "bound": MOE_BIG_SHARE, "max_abs_err": _max_abs_err(got, ref),
+           "control_with_drops_added": control}
+    _check(share <= MOE_BIG_SHARE and control > MOE_BIG_SHARE,
+           f"lm {cfg.name}: the MoE layer at {t} tokens is {share} of the rms off its "
+           f"reference (control {control}, bound {MOE_BIG_SHARE})")
+    return res
+
+
+def _big_params(model) -> list:
+    """Every parameter of more than 2**31 elements: each must lie whole on
+    the card, contiguous, and its last slice along dim 0 (past element
+    2**31) drawn at the initializer's scale, 1/sqrt(shape[1]) (the
+    experts' d_in: ``init_dense(d_model, E*F)`` and ``(F, E*d_model)``
+    reshaped)."""
+    out = []
+    for name, p in model.named_parameters():
+        if p.numel() <= 2**31:
+            continue
+        std = float(p[-1].detach().float().std()) * float(np.sqrt(p.shape[1]))
+        out.append({"name": name, "shape": list(p.shape), "numel": p.numel(),
+                    "last_slice_std_over_scale": std})
+        _check(p.is_cuda and p.is_contiguous() and abs(std - 1.0) < 0.01,
+               f"{name} {list(p.shape)}: not whole on the card or its tail not drawn ({std})")
+    return out
+
+
 def _last_logits(model, tokens, backend=None) -> torch.Tensor:
     with torch.inference_mode():
         h, _, _ = lm_hidden(model, tokens, backend=backend)
@@ -1440,15 +1635,24 @@ def _lm_logits_check(model, tokens, share: float, gate: bool) -> dict:
     return res
 
 
-def _lm_float32_checks(cfg, tokens, device, seed: int) -> tuple[dict, dict]:
-    """The float32 model at the published widths: the logits check (gated)
+def _lm_float32_checks(cfg, tokens, device, seed: int) -> tuple[dict, dict, dict]:
+    """The float32 model at the published widths, its build timed and its
+    peak read: the logits check (gated where a GQA layer runs the kernel;
+    under MLA both backends run the same plain code, so it is reported)
     and the decode replay against the forward: LM_REPLAY_S greedy-prefix
     steps through ``lm_decode_step``, each step's logits within
     LM_LOGIT_SHARE of the full forward's logits' rms at that position; the
     same replay with every token written one slot late must miss it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     model = Transformer(cfg, generator=_gen(device, seed + 2), device=device,
                         dtype=torch.float32)
-    logits = _lm_logits_check(model, tokens, LM_LOGIT_SHARE, gate=True)
+    torch.cuda.synchronize()
+    build = {"dtype": "float32", "init_s": time.perf_counter() - t0,
+             "init_peak_device_bytes": torch.cuda.max_memory_allocated(),
+             "params": sum(p.numel() for p in model.parameters())}
+    logits = _lm_logits_check(model, tokens, LM_LOGIT_SHARE, gate=cfg.mla is None)
     toks = tokens[:, :LM_REPLAY_S]
 
     def replay(late: int) -> float:
@@ -1468,8 +1672,8 @@ def _lm_float32_checks(cfg, tokens, device, seed: int) -> tuple[dict, dict]:
                           f"({control} <= {tol})")
     del model, full
     torch.cuda.empty_cache()
-    return logits, {"s": LM_REPLAY_S, "dtype": "float32", "max_abs_err": err, "tol": tol,
-                    "control_one_slot_late": control}
+    return build, logits, {"s": LM_REPLAY_S, "dtype": "float32", "max_abs_err": err,
+                           "tol": tol, "control_one_slot_late": control}
 
 
 def _decode_cache(cfg, dtype, device, seed: int, batch: int | None = None,
@@ -1486,16 +1690,18 @@ def _decode_cache(cfg, dtype, device, seed: int, batch: int | None = None,
     return cache, gen
 
 
-def _lm_decode(arch: str, model, device, seed: int) -> dict:
+def _lm_decode(arch: str, model, device, seed: int, refs: bool) -> dict:
     """decode_32k's step at LM_DECODE_BATCH sequences: LM_DECODE_TOKENS
     greedy tokens against a LM_DECODE_CACHE-slot cache whose earlier slots
-    hold seeded keys and values, timed between CUDA events.  Then the
-    serve_mesh phase's reference (DECODE_REFS): the same positions from the
-    same seeded cache, teacher-forced with this run's tokens, each step's
-    last logits."""
+    hold seeded keys and values, timed between CUDA events.  Then, with
+    ``refs``, the serve_mesh phase's reference (DECODE_REFS): the same
+    positions from the same seeded cache, teacher-forced with this run's
+    tokens, each step's last logits."""
     cfg = model.cfg
+    torch.cuda.empty_cache()
     bundle = build_bundle(arch, "decode_32k", config=cfg, device=device)
     cache, gen = _decode_cache(cfg, model.embed.dtype, device, seed)
+    cache_bytes = sum(t.numel() * t.element_size() for v in cache.values() for t in v.values())
     state = {"params": model, "cache": cache}
     tok = torch.randint(0, cfg.vocab, (LM_DECODE_BATCH, 1), generator=gen, device=device)
     pos0 = LM_DECODE_CACHE - LM_DECODE_TOKENS - 1
@@ -1519,6 +1725,15 @@ def _lm_decode(arch: str, model, device, seed: int) -> dict:
            f"lm {arch}: decode tokens out of range")
     del state, cache
     torch.cuda.empty_cache()
+    line = {"batch": LM_DECODE_BATCH, "cache_len": LM_DECODE_CACHE, "cache_bytes": cache_bytes,
+            "tokens": LM_DECODE_TOKENS, "positions": [pos0 + 1, pos0 + LM_DECODE_TOKENS],
+            "ms_per_token": ms / LM_DECODE_TOKENS,
+            "tokens_per_s": LM_DECODE_BATCH * LM_DECODE_TOKENS / (ms / 1e3),
+            "profile": profile,
+            "cut": {"batch": [ARCHS[arch].shapes()["decode_32k"].global_batch,
+                              LM_DECODE_BATCH]}}
+    if not refs:
+        return line
     dtype = model.embed.dtype
     refs, ref_s = [], []
     for to, steps in ((dtype, len(toks)), (torch.float32, DECODE_F32_STEPS)):
@@ -1536,74 +1751,108 @@ def _lm_decode(arch: str, model, device, seed: int) -> dict:
         torch.cuda.empty_cache()
         ref_s.append(time.perf_counter() - t0)
     DECODE_REFS[arch] = (cfg, torch.stack(toks).cpu(), pos0, LM_DECODE_CACHE, *refs)
-    return {"batch": LM_DECODE_BATCH, "cache_len": LM_DECODE_CACHE,
-            "tokens": LM_DECODE_TOKENS, "positions": [pos0 + 1, pos0 + LM_DECODE_TOKENS],
-            "ms_per_token": ms / LM_DECODE_TOKENS,
-            "tokens_per_s": LM_DECODE_BATCH * LM_DECODE_TOKENS / (ms / 1e3),
-            "profile": profile, "serve_mesh_refs_s": dict(zip(("bfloat16", "float32"), ref_s)),
-            "cut": {"batch": [ARCHS[arch].shapes()["decode_32k"].global_batch,
-                              LM_DECODE_BATCH]}}
+    return {**line, "serve_mesh_refs_s": dict(zip(("bfloat16", "float32"), ref_s))}
 
 
 def _lm_model_run(arch: str, layers: int | None, device, seed: int, scale: int) -> dict:
-    """One model: built from ``seed`` through the prefill bundle, its prefill
-    counted (every GQA layer must launch the TMA/wgmma flash kernel once),
-    timed and read for its peak; then held (layer 0's attention, the
-    logits, the decode replay) and, for the first model, decode timed."""
+    """One model: built from ``seed`` through the prefill bundle (its build
+    timed and its peak read), its prefill counted (every GQA layer must
+    launch the TMA/wgmma flash kernel once, an MLA layer none; an MoE
+    layer's dropped pairs read), timed and read for its peak; then held
+    (layer 0's GQA attention, or MLA's time; the logits; the decode replay),
+    decode timed (LM_DECODED) and DeepSeek-V3's MTP loss run."""
     cfg = ARCHS[arch].config
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     s = max(2 * FLASH_CHECK_ROWS, LM_PREFILL_S >> _cut(scale))
+    marks = [time.perf_counter()]
+    stage_s = {}
+
+    def mark(stage: str) -> None:  # host seconds since the previous mark
+        marks.append(time.perf_counter())
+        stage_s[stage] = marks[-1] - marks[-2]
+
     bundle = build_bundle(arch, "prefill_32k", config=cfg, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = bundle.init_state_fn(seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
     model = state["params"]
+    big = _big_params(model)
     tokens = torch.randint(0, cfg.vocab, (LM_PREFILL_BATCH, s),
                            generator=_gen(device, seed + 1), device=device)
     torch.cuda.synchronize()
+    gqa_layers = 0 if cfg.mla else cfg.n_layers
 
     # -- the prefill step, with the flash launch counts at 0 just before --
     _zero_flash_counts()
     torch.cuda.reset_peak_memory_stats()
-    out = bundle.step_fn(state, {"tokens": tokens})
-    torch.cuda.synchronize()
+    with _dropped_pairs() as drops:
+        out = bundle.step_fn(state, {"tokens": tokens})
+        torch.cuda.synchronize()
     launches, variants = flash_fwd.launches, dict(flash_fwd.variant_launches)
     peak = torch.cuda.max_memory_allocated()
     # -- end of the prefill step --
-    _check(launches == cfg.n_layers and variants["bfloat16-wgmma"] == cfg.n_layers,
-           f"lm {arch}: prefill launched flash {variants}, not {cfg.n_layers} x bfloat16-wgmma")
-    # the one-rank last-position logits, for the model_axis phase
-    PREFILL_REFS[arch] = (cfg, tokens.cpu(), _last_logits(model, tokens).cpu())
+    _check(launches == gqa_layers and variants["bfloat16-wgmma"] == gqa_layers,
+           f"lm {arch}: prefill launched flash {variants}, not {gqa_layers} x bfloat16-wgmma "
+           f"(one a GQA layer)")
+    if arch in LM_RANKED:  # the one-rank last-position logits, for the model_axis phase
+        PREFILL_REFS[arch] = (cfg, tokens.cpu(), _last_logits(model, tokens).cpu())
     nxt = out["next_token"]
     _check(nxt.shape == (LM_PREFILL_BATCH,) and bool(((nxt >= 0) & (nxt < cfg.vocab)).all()),
            f"lm {arch}: prefill's next token out of range")
-    prefill_ms = _median_ms(lambda: bundle.step_fn(state, {"tokens": tokens}), 3)
-    profile = _profile(lambda: bundle.step_fn(state, {"tokens": tokens}), "flash_fwd",
-                       "flash_kernel_ms")
+    def step():
+        return bundle.step_fn(state, {"tokens": tokens})
+
+    # the others: the counted call was the warm-up
+    prefill_ms = _median_ms(step, 3) if arch in LM_RANKED else _once_ms(step)
+    profiled = arch in LM_RANKED or cfg.mla is not None
+    profile = _profile(step, "flash_fwd", "flash_kernel_ms") if profiled else None
+    mark("build_and_prefill")
     published = ARCHS[arch].config
     res = {
         "arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.d_head], "window": cfg.sliding_window,
+        "vocab": cfg.vocab, "attention": None,
         "moe": None if cfg.moe is None else [cfg.moe.n_experts, cfg.moe.top_k],
         "params": sum(p.numel() for p in model.parameters()), "init_s": init_s,
+        "init_peak_device_bytes": init_peak, "params_over_2_31": big,
         "prefill": {"batch": LM_PREFILL_BATCH, "s": s, "prefill_ms": prefill_ms,
+                    "timed": "median of 3" if arch in LM_RANKED else "once, after the counted call",
                     "tokens_per_s": LM_PREFILL_BATCH * s / (prefill_ms / 1e3),
                     "peak_device_bytes": peak, "flash_launches": launches,
-                    "variant_launches": variants, "profile": profile},
+                    "gqa_layers": gqa_layers, "variant_launches": variants,
+                    "dropped_pairs": drops, "profile": profile},
         "cut": {"batch": [ARCHS[arch].shapes()["prefill_32k"].global_batch, LM_PREFILL_BATCH],
                 **({"n_layers": [published.n_layers, cfg.n_layers]} if layers else {}),
                 **({"s": [LM_PREFILL_S, s]} if s != LM_PREFILL_S else {})},
     }
-    res["attention"] = _lm_layer_attention(model, tokens)
+    if cfg.mla:
+        res["mla_layer0"] = _lm_layer_mla(model, tokens)
+    else:
+        res["attention"] = _lm_layer_attention(model, tokens)
+    mark("layer0")
     res["logits_bf16"] = _lm_logits_check(model, tokens, LM_BF16_LOGIT_SHARE,
                                           gate=arch in LM_BF16_GATED)
-    if arch == LM_MODELS[0][0]:
-        res["decode"] = _lm_decode(arch, model, device, seed)
+    mark("logits_bf16")
+    if arch in LM_DECODED:
+        res["decode"] = _lm_decode(arch, model, device, seed, refs=arch == LM_DECODED[0])
+        mark("decode")
+    if cfg.mtp_depth:
+        res["mtp"] = {**_lm_mtp(model, device, seed), "dropped_pairs_prefill": drops}
+        mark("mtp")
+    if cfg.moe and _dispatch_elements(cfg, LM_PREFILL_BATCH * s) > MOE_BIG_ELEMENTS:
+        res["moe_prefill_tokens"] = _moe_big_check(model, LM_PREFILL_BATCH * s, device, seed)
+        mark("moe_prefill_tokens")
     del state, model, out
     torch.cuda.empty_cache()
-    res["logits"], res["replay"] = _lm_float32_checks(cfg, tokens, device, seed)
+    res["float32_build"], res["logits"], res["replay"] = _lm_float32_checks(cfg, tokens, device,
+                                                                           seed)
+    mark("float32")
+    res["stage_s"] = stage_s
     return res
 
 
@@ -1618,6 +1867,7 @@ def phase_lm(device, seed: int, scale: int) -> dict:
     return {
         "cut": _cut(scale) > 0,
         "launches": sum(r["prefill"]["flash_launches"] for r in runs),
+        "launches_by_model": {r["arch"]: r["prefill"]["flash_launches"] for r in runs},
         "models": runs,
         "serve_batch": {"arch": LM_MODELS[0][0], "config": "reduced", "tokens": tokens.tolist()},
     }
@@ -4576,7 +4826,7 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
         main = phase["cases"][0]
         more = phase["cases"][1:] + (
             seg_livj["cases"] + [gnn_case, recsys["bag"]] if phase is seg
-            else [m["attention"] for m in lm["models"]])
+            else [m["attention"] for m in lm["models"] if m["attention"] is not None])
         entries.append({
             "name": name,
             "route": "cuda",

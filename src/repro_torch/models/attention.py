@@ -17,7 +17,8 @@ Parameters are ``nn.Module``s holding the reference's leaves by name
     ``_sdpa`` (the scores rounded to the inputs' dtype before the float32
     softmax, the probabilities cast back, as the reference does) and, at
     ``s >= CHUNKED_ATTN_THRESHOLD`` with ``s % _ATTN_CHUNK == 0``, the
-    streaming-softmax ``_chunked_sdpa``.  Both thresholds are module
+    streaming-softmax ``_chunked_sdpa``; MLA's ``_mla_chunked`` also tiles
+    the queries (``_MLA_Q_TILE`` rows).  These sizes are module
     attributes, read at call time.  Under grad every chunk body of
     ``_chunked_sdpa`` and of MLA's ``_mla_chunked`` is checkpointed, as
     the reference's ``jax.checkpoint`` does: the backward recomputes a
@@ -93,6 +94,9 @@ _NEG = -1e30
 # values).
 CHUNKED_ATTN_THRESHOLD = 4096
 _ATTN_CHUNK = 1024
+# MLA's chunked prefill takes the queries this many rows at a time (read
+# at call time)
+_MLA_Q_TILE = 4096
 
 
 def _scale(d: int) -> float:
@@ -479,15 +483,21 @@ def mla_forward(p: MLAAttention, cfg: LMConfig, x: torch.Tensor, *, positions=No
 def _mla_chunked(p: MLAAttention, cfg: LMConfig, q_nope, q_rope, c, k_rope, scale: float):
     """Streaming-softmax MLA prefill: the per-head K/V are expanded from the
     latent one chunk at a time, so neither S x S scores nor the whole
-    expanded K are ever held."""
+    expanded K are ever held.  The queries go ``_MLA_Q_TILE`` rows at a
+    time (a score temporary is ``[B, H, tile, chunk]`` float32: 2.1 GB at
+    128 heads, where all 32k rows would take 17.2 GB), and a tile stops at
+    the first key chunk wholly above its diagonal.  Keys run from 0 and
+    every row reads key 0, so such a chunk would leave the tile's running
+    max, sum and accumulator exactly as they were: each row adds the same
+    terms in the same order as the reference's one pass over all rows."""
     m = cfg.mla
     b, s, h, _ = q_nope.shape
     ch = min(_ATTN_CHUNK, s)
+    tile = min(_MLA_Q_TILE, s)
     w_uk = p.w_uk.reshape(m.kv_lora_rank, h, m.qk_nope_dim)
     w_uv = p.w_uv.reshape(m.kv_lora_rank, h, m.v_head_dim)
-    q_pos = torch.arange(s, device=c.device)
 
-    def body(mx, l, acc, q_nope, q_rope, c_j, kr_j, k_pos, w_uk, w_uv):
+    def body(mx, l, acc, q_nope, q_rope, c_j, kr_j, q_pos, k_pos, w_uk, w_uv):
         k_nope_j = torch.einsum("btr,rhe->bthe", c_j, w_uk)
         v_j = torch.einsum("btr,rhe->bthe", c_j, w_uv)
         scores = (
@@ -504,16 +514,24 @@ def _mla_chunked(p: MLAAttention, cfg: LMConfig, q_nope, q_rope, c, k_rope, scal
             "bhst,bthe->bhse", pr, v_j.to(torch.float32))
         return m_new, l, acc
 
-    mx = torch.full((b, h, s), _NEG, dtype=torch.float32, device=c.device)
-    l = torch.zeros((b, h, s), dtype=torch.float32, device=c.device)
-    acc = torch.zeros((b, h, s, m.v_head_dim), dtype=torch.float32, device=c.device)
-    for j in range(s // ch):
-        c_j, kr_j = c[:, j * ch:(j + 1) * ch], k_rope[:, j * ch:(j + 1) * ch]
-        k_pos = j * ch + torch.arange(ch, device=c.device)
-        mx, l, acc = _chunk_step(body, mx, l, acc, q_nope, q_rope, c_j, kr_j, k_pos,
-                                 w_uk, w_uv)
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 2, 1, 3).to(q_nope.dtype)
+    outs = []
+    for i0 in range(0, s, tile):
+        i1 = min(s, i0 + tile)
+        q_pos = torch.arange(i0, i1, device=c.device)
+        qn, qr = q_nope[:, i0:i1], q_rope[:, i0:i1]
+        mx = torch.full((b, h, i1 - i0), _NEG, dtype=torch.float32, device=c.device)
+        l = torch.zeros((b, h, i1 - i0), dtype=torch.float32, device=c.device)
+        acc = torch.zeros((b, h, i1 - i0, m.v_head_dim), dtype=torch.float32, device=c.device)
+        for j in range(s // ch):
+            if j * ch >= i1:  # every later key lies above the tile's last row
+                break
+            c_j, kr_j = c[:, j * ch:(j + 1) * ch], k_rope[:, j * ch:(j + 1) * ch]
+            k_pos = j * ch + torch.arange(ch, device=c.device)
+            mx, l, acc = _chunk_step(body, mx, l, acc, qn, qr, c_j, kr_j, q_pos, k_pos,
+                                     w_uk, w_uv)
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.permute(0, 2, 1, 3).to(q_nope.dtype))
+    return torch.cat(outs, dim=1)
 
 
 def init_mla_cache(cfg: LMConfig, batch: int, cache_len: int, dtype=torch.bfloat16,

@@ -43,11 +43,13 @@ def init_dense(
 ) -> torch.Tensor:
     """``[d_in, d_out]`` normal weights scaled by ``1/sqrt(d_in)``, drawn in
     float32 from ``generator`` on its device (the CPU when it is None) and
-    cast to ``dtype``."""
+    cast to ``dtype``.  The draw is scaled in place (the same bits as
+    ``w * scale``), so the float32 draw is the only transient: a
+    DeepSeek-V3 expert tensor is 3.76e9 elements, 15 GB in float32."""
     scale = 1.0 / math.sqrt(d_in)
     device = generator.device if generator is not None else None
     w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 def rope_angles(positions: torch.Tensor, d_head: int, theta: float = 10000.0):
