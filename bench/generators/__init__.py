@@ -1,0 +1,2 @@
+"""Graph generators, one module per kind, found by the ``generator`` key of
+a configuration file: ``generate(config, seed, device) -> BenchGraph``."""
