@@ -34,6 +34,19 @@ closure condition each read one boolean back to the host per iteration;
 can report what that costs.  Capturing the loop in a CUDA graph is later
 work.
 
+Spans.  Under a running ``torch.profiler`` the engine marks its phases
+(``repro_torch.spans``): ``engine.run`` (one ``run``) holds ``engine.init``
+(the initial state built and uploaded), ``engine.window`` (one window, the
+mesh program's included) and ``engine.pull`` (the bulk pull to numpy, also
+``run_window``'s).  Inside a dense window: ``engine.host_read`` (each loop
+condition read), ``engine.closure`` (one local closure iteration) and
+``engine.exchange`` (the remote exchange), each holding ``engine.gather``
+(the frontier and candidate gathers over ``[S, E]``), ``engine.relax`` (the
+relax call) and ``engine.counters`` (the partition counters' scan), plus
+the window's last ``engine.counters``.  A stationary superstep has its
+gathers, relax calls and counters only.  ``TraversalEngine.scan_elems``
+counts the counters' work: rows × n summed over every scan.
+
 ``run`` executes one batched traversal of depth ``m_max`` and returns numpy
 leaves; ``init_state`` / ``run_window`` run it resumably, leaving the
 carried state on the device between windows; ``backfill_rows`` swaps batch
@@ -72,6 +85,7 @@ from repro_torch.graph.program import (
 )
 from repro_torch.graph.structs import PartitionedGraph, side_cache
 from repro_torch.kernels.bfs_relax.ops import make_relax_fn, validate_backend
+from repro_torch.spans import span
 
 def _pg_cached(pg: PartitionedGraph, name: str, key: tuple, build):
     """Fetch-or-build ``key`` in the bounded side cache ``name`` of ``pg``
@@ -300,7 +314,8 @@ class TraversalEngine:
     launch (loop conditions) plus one per bulk pull of results.
     ``bulk_pulls`` counts the bulk pulls alone: a window's or a run's
     counters (with a dense run's state), and each state tensor a mesh
-    gathers from its ranks to the host.
+    gathers from its ranks to the host.  ``scan_elems`` counts the dense
+    window's partition-counter work: rows × n of every ``_part_sums``.
     """
 
     def __init__(
@@ -327,6 +342,7 @@ class TraversalEngine:
         self.n_subgraphs = pg.n_subgraphs if self.collect_subgraphs else 0
         self.host_syncs = 0
         self.bulk_pulls = 0
+        self.scan_elems = 0
         self._mesh_prog = None
         if cfg.mesh is not None and cfg.mesh.world_size > 1:
             if self.collect_subgraphs:
@@ -410,7 +426,8 @@ class TraversalEngine:
     def _any(self, t: torch.Tensor) -> bool:
         """One host read of ``t.any()`` -- a loop condition."""
         self.host_syncs += 1
-        return bool(t.any())
+        with span("engine.host_read"):
+            return bool(t.any())
 
     # -- device program ------------------------------------------------------
 
@@ -441,18 +458,29 @@ class TraversalEngine:
             hits = torch.zeros((s_batch, self.n_subgraphs), dtype=i32, **kw)
             return hits.index_add_(1, self._sg, f.to(i32)) > 0
 
+        def part_sums(x):
+            self.scan_elems += x.shape[0] * x.shape[1]
+            return _part_sums(x, dev)
+
         def stationary_body(d, fr, nst):
             # one gather pass over local + remote edges, program.apply at the
             # boundary, frontier drained by the iteration budget
-            active_le = fr.index_select(1, dev.lsrc)
-            acc = self._relax_l(
-                candidates(d, active_le, dev.lsrc, self._lw), identity_base()
-            )
-            sums = _part_sums(torch.cat([fr * dev.ldeg, fr * dev.rdeg, fr]), dev)
+            with span("engine.gather"):
+                active_le = fr.index_select(1, dev.lsrc)
+                cand = candidates(d, active_le, dev.lsrc, self._lw)
+            with span("engine.relax"):
+                acc = self._relax_l(cand, identity_base())
+            del cand
+            with span("engine.counters"):
+                sums = part_sums(torch.cat([fr * dev.ldeg, fr * dev.rdeg, fr]))
             we_s, ms_s, wv_s = sums[:s_batch], sums[s_batch:-s_batch], sums[-s_batch:]
             it_s = fr.any(dim=1).to(i32)  # one pass per superstep
-            active_re = fr.index_select(1, dev.rsrc)
-            acc = self._relax_r(candidates(d, active_re, dev.rsrc, self._rw), acc)
+            with span("engine.gather"):
+                active_re = fr.index_select(1, dev.rsrc)
+                cand = candidates(d, active_re, dev.rsrc, self._rw)
+            with span("engine.relax"):
+                acc = self._relax_r(cand, acc)
+            del cand
             new_d = prog.apply(d, acc, n)
             next_fr = fr & prog.keep_running(nst)[:, None]
             return new_d, next_fr, we_s, wv_s, ms_s, it_s
@@ -465,19 +493,31 @@ class TraversalEngine:
             wv_s = torch.zeros((s_batch, p), dtype=i32, **kw)
             it_s = torch.zeros((s_batch,), dtype=i32, **kw)
             while self._any(f_i):
-                active_e = f_i.index_select(1, dev.lsrc)
-                new_d = self._relax_l(candidates(d_i, active_e, dev.lsrc, self._lw), d_i)
-                improved = prog.is_active(new_d, d_i)
-                sums = _part_sums(torch.cat([f_i * dev.ldeg, f_i]), dev)
-                we_s = we_s + sums[:s_batch]
-                wv_s = wv_s + sums[s_batch:]
-                it_s = it_s + f_i.any(dim=1).to(i32)
-                d_i, f_i, touched = new_d, improved, touched | improved
+                with span("engine.closure"):
+                    with span("engine.gather"):
+                        active_e = f_i.index_select(1, dev.lsrc)
+                        cand = candidates(d_i, active_e, dev.lsrc, self._lw)
+                    with span("engine.relax"):
+                        new_d = self._relax_l(cand, d_i)
+                    del cand  # not held into the next gather: one [S, E] buffer at a time
+                    improved = prog.is_active(new_d, d_i)
+                    with span("engine.counters"):
+                        sums = part_sums(torch.cat([f_i * dev.ldeg, f_i]))
+                    we_s = we_s + sums[:s_batch]
+                    wv_s = wv_s + sums[s_batch:]
+                    it_s = it_s + f_i.any(dim=1).to(i32)
+                    d_i, f_i, touched = new_d, improved, touched | improved
             # -- remote exchange at the superstep boundary ------------------
-            active_re = touched.index_select(1, dev.rsrc)
-            new_d = self._relax_r(candidates(d_i, active_re, dev.rsrc, self._rw), d_i)
-            next_fr = prog.is_active(new_d, d_i)
-            ms_s = _part_sums(touched * dev.rdeg, dev)
+            with span("engine.exchange"):
+                with span("engine.gather"):
+                    active_re = touched.index_select(1, dev.rsrc)
+                    cand = candidates(d_i, active_re, dev.rsrc, self._rw)
+                with span("engine.relax"):
+                    new_d = self._relax_r(cand, d_i)
+                del cand
+                next_fr = prog.is_active(new_d, d_i)
+                with span("engine.counters"):
+                    ms_s = part_sums(touched * dev.rdeg)
             return new_d, next_fr, we_s, wv_s, ms_s, it_s
 
         superstep_body = stationary_body if prog.stationary else monotone_body
@@ -497,7 +537,8 @@ class TraversalEngine:
             s += 1
         # next-superstep partition activity + done flags, computed on the
         # device so a placement decision needs no [n]-sized pull
-        pact = _part_sums(fr, dev) > 0
+        with span("engine.counters"):
+            pact = part_sums(fr) > 0
         done = ~fr.any(dim=1)
         wire = torch.zeros((s_batch, m_max), dtype=i32, **kw)  # dense: no wire
         return TraversalResult(d, fr, nst, we, wv, ms, it, sg, wire), pact, done
@@ -505,12 +546,13 @@ class TraversalEngine:
     def _launch(self, dist, frontier, nst0, k: int):
         """One window on whichever program this engine runs; the mesh
         program's loop reads count into ``host_syncs``."""
-        if self._mesh_prog is not None:
-            reads0 = self._mesh_prog.host_reads
-            res, pact, done = self._mesh_prog.window(dist, frontier, nst0, k)
-            self.host_syncs += self._mesh_prog.host_reads - reads0
-            return TraversalResult(*res), pact, done
-        return self._window_impl(dist, frontier, nst0, k)
+        with span("engine.window"):
+            if self._mesh_prog is not None:
+                reads0 = self._mesh_prog.host_reads
+                res, pact, done = self._mesh_prog.window(dist, frontier, nst0, k)
+                self.host_syncs += self._mesh_prog.host_reads - reads0
+                return TraversalResult(*res), pact, done
+            return self._window_impl(dist, frontier, nst0, k)
 
     # -- host API ------------------------------------------------------------
 
@@ -522,18 +564,15 @@ class TraversalEngine:
         like WCC/PageRank); a mesh rank keeps its own rows of it.
         """
         sources = np.atleast_1d(np.asarray(sources, dtype=np.int64))
-        if self._mesh_prog is not None:
-            dist, frontier = self._mesh_prog.init_state(sources)
-            return WindowState(
-                dist, frontier,
-                torch.zeros((sources.shape[0],), dtype=torch.int32, device=self.device),
-            )
-        state, frontier = self.program.init(self.pg, sources)
-        return WindowState(
-            torch.as_tensor(state, device=self.device),
-            torch.as_tensor(frontier, device=self.device),
-            torch.zeros((sources.shape[0],), dtype=torch.int32, device=self.device),
-        )
+        with span("engine.init"):
+            if self._mesh_prog is not None:
+                dist, frontier = self._mesh_prog.init_state(sources)
+            else:
+                state, frontier = self.program.init(self.pg, sources)
+                dist = torch.as_tensor(state, device=self.device)
+                frontier = torch.as_tensor(frontier, device=self.device)
+            nst = torch.zeros((sources.shape[0],), dtype=torch.int32, device=self.device)
+            return WindowState(dist, frontier, nst)
 
     def backfill_rows(self, state: WindowState, rows, sources) -> WindowState:
         """Replace carried-state batch rows at a window boundary.
@@ -596,16 +635,17 @@ class TraversalEngine:
         )
         self.host_syncs += 1
         self.bulk_pulls += 1
-        return WindowResult(
-            state=WindowState(res.dist, res.frontier, res.n_supersteps),
-            n_supersteps=_to_host(res.n_supersteps),
-            edges_examined=_to_host(res.edges_examined),
-            verts_processed=_to_host(res.verts_processed),
-            msgs_sent=_to_host(res.msgs_sent),
-            inner_iters=_to_host(res.inner_iters),
-            part_active_next=_to_host(pact),
-            done=_to_host(done),
-        )
+        with span("engine.pull"):
+            return WindowResult(
+                state=WindowState(res.dist, res.frontier, res.n_supersteps),
+                n_supersteps=_to_host(res.n_supersteps),
+                edges_examined=_to_host(res.edges_examined),
+                verts_processed=_to_host(res.verts_processed),
+                msgs_sent=_to_host(res.msgs_sent),
+                inner_iters=_to_host(res.inner_iters),
+                part_active_next=_to_host(pact),
+                done=_to_host(done),
+            )
 
     def run(self, sources) -> TraversalResult:
         """Run one batched traversal from ``sources`` (host ints).
@@ -614,21 +654,25 @@ class TraversalEngine:
         ``TraversalNotConverged`` (with the partial result attached) if any
         source failed to converge within ``m_max`` supersteps.
         """
-        state = self.init_state(sources)
-        res, _, _ = self._launch(
-            state.dist, state.frontier, state.n_supersteps, self.m_max
-        )
-        self.host_syncs += 1
-        self.bulk_pulls += 1
-        if self._mesh_prog is not None:
-            # this rank's blocks -> global vertex order (a collective)
-            res = res._replace(dist=self._gather(res.dist), frontier=self._gather(res.frontier))
-        res = TraversalResult(
-            *(_to_host(t) if isinstance(t, torch.Tensor) else t for t in res)
-        )
-        if not self.program.converged(bool(res.frontier.any())):
-            raise TraversalNotConverged(self.m_max, res)
-        return res
+        with span("engine.run"):
+            state = self.init_state(sources)
+            res, _, _ = self._launch(
+                state.dist, state.frontier, state.n_supersteps, self.m_max
+            )
+            self.host_syncs += 1
+            self.bulk_pulls += 1
+            with span("engine.pull"):
+                if self._mesh_prog is not None:
+                    # this rank's blocks -> global vertex order (a collective)
+                    res = res._replace(
+                        dist=self._gather(res.dist), frontier=self._gather(res.frontier)
+                    )
+                res = TraversalResult(
+                    *(_to_host(t) if isinstance(t, torch.Tensor) else t for t in res)
+                )
+            if not self.program.converged(bool(res.frontier.any())):
+                raise TraversalNotConverged(self.m_max, res)
+            return res
 
 
 def get_engine(
