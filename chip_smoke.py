@@ -4,7 +4,7 @@
 Drives the paper's pipeline once on one NVIDIA card, through the port's own
 entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
 
-  1. device  -- the card's name and power limit; the three kernels' builds,
+  1. device  -- the card's name and power limit; the four kernels' builds,
                 one ``nvcc`` each, all started together.
   2. segment_sum -- ``sorted_segment_sum`` at ogbn-products' full size
                 (N = 2,449,029, E = 61,859,140, D = 128, float32), ids
@@ -211,6 +211,12 @@ entry points, at the size of the paper's LiveJournal workload (LIVJ/8P):
                 rtol=1e-5, atol=1e-9.  Times by CUDA
                 events, one call at a time and back to back, beside the
                 bound and one ``scatter_reduce`` call.  Then
+                ``part_count``: the partition counters' kernel at the
+                benchmark's batch of 16 rows over this graph, the closure's
+                weightings (local degree, ones) and the exchange's (remote
+                degree), at a sparse and an all-true frontier, bit for bit
+                against the plain version and timed beside its bound and one
+                ``index_add_`` call.  Then
                 ``relax_phases``: a diagnosis build of the kernel
                 (``RELAX_PHASE_CLOCKS``) splits a block's cycles by phase.
   12. oracle  -- BFS, SSSP, WCC and PageRank on a small graph on the card,
@@ -375,6 +381,7 @@ from repro_torch.graph.program import (  # noqa: E402
     WccProgram,
 )
 from repro_torch.graph.traversal import (  # noqa: E402
+    _device_arrays,
     get_engine,
     reference_bfs,
     reference_pagerank,
@@ -409,6 +416,7 @@ from repro_torch.kernels.segment_sum import (  # noqa: E402
     sorted_segment_sum,
 )
 from repro_torch.kernels.segment_sum.kernel import segment_levels  # noqa: E402
+from repro_torch.kernels.part_count import part_count, part_counts_reference  # noqa: E402
 from repro_torch.ckpt import latest_step  # noqa: E402
 from repro_torch.data.synthetic import InputSpec, graph_batch, make_batch  # noqa: E402
 from repro_torch.launch.serve import serve_batch  # noqa: E402
@@ -534,6 +542,14 @@ SEG_SOURCE = "src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu"
 SEG_REPLACES = "src/repro/kernels/segment_sum/kernel.py:61"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:91"
+PART_COUNT_SOURCE = "src/repro_torch/kernels/part_count/csrc/part_count.cu"
+#: no TPU kernel: the JAX package counts per edge with jax.ops.segment_sum
+PART_COUNT_REPLACES = None
+#: the partition counters' rows (the benchmark's batch of 16 sources) and
+#: the frontier densities they are timed at: sparse, as most closure
+#: iterations find it, and all-true, as PageRank's is
+PART_COUNT_ROWS = 16
+PART_COUNT_DENSITIES = (0.01, 1.0)
 FULL_SCALE = 22
 
 #: ogbn-products at full size (OGB's published counts): the segment sum's
@@ -893,7 +909,8 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 # -- phases ------------------------------------------------------------------
 
 
-KERNELS = {"relax": relax_rowptr, "segment_sum": segment_sum_sorted, "flash_attention": flash_fwd}
+KERNELS = {"relax": relax_rowptr, "segment_sum": segment_sum_sorted, "flash_attention": flash_fwd,
+           "part_count": part_count}
 #: a diagnosis build of the relax kernel that records its phase clocks
 #: (``RELAX_PHASE_CLOCKS`` in csrc/relax.cu); never on the main path
 RELAX_PHASE_KERNEL = RelaxKernel(defines=("RELAX_PHASE_CLOCKS",))
@@ -3569,6 +3586,52 @@ def phase_kernels(pg, seed: int, device) -> dict:
     return out
 
 
+def _part_count_bound(r: int, n: int, loaded: int, w: int, p: int) -> tuple[float, str]:
+    """Least time on the card for one call: the frontier's bytes, each
+    loaded weight and the part ids read once, the sums written once."""
+    nbytes = r * n + 4 * n * (loaded + 1) + 4 * w * r * p
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_part_count(pg, seed: int, device) -> dict:
+    """The partition counters' kernel at the main path's shapes (see the
+    module docstring): each call bit for bit against the plain version."""
+    dev = _device_arrays(pg, device)
+    n, p, r = pg.graph.n_vertices, pg.n_parts, PART_COUNT_ROWS
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    part64 = dev.part_of.to(torch.int64)
+    launches0 = part_count.launches
+    cases = []
+    for name, weights in (("closure", (dev.ldeg, None)), ("exchange", (dev.rdeg,))):
+        for density in PART_COUNT_DENSITIES:
+            x = torch.rand((r, n), generator=gen, device=device) < density
+            out = part_count(x, weights, dev.part_of, p)
+            ref = part_counts_reference(x, weights, dev.part_of, p)
+            err = int((out.to(torch.int64) - ref.to(torch.int64)).abs().max())
+            _check(err == 0 and torch.equal(out, ref),
+                   f"part_count {name} at density {density} differs from the plain version")
+            xi = x.to(torch.int32)
+            bound_ms, bound_by = _part_count_bound(
+                r, n, sum(w is not None for w in weights), len(weights), p)
+            cases.append({
+                "case": f"{name}-d{density}", "R": r, "n": n, "P": p, "W": len(weights),
+                "density": density, "max_abs_err": err,
+                "ms": _median_ms(lambda: part_count(x, weights, dev.part_of, p), 20),
+                "ms_back_to_back": _back_to_back_ms(
+                    lambda: part_count(x, weights, dev.part_of, p), 40),
+                "plain_ms": _median_ms(
+                    lambda: part_counts_reference(x, weights, dev.part_of, p), 5),
+                "library_ms": _median_ms(
+                    lambda: torch.zeros((r, p), dtype=torch.int32, device=device).index_add_(
+                        1, part64, xi), 10),
+                "library": "torch.zeros(R, P).index_add_(1, part_of, x)",
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            })
+            del x, xi
+    return {"cases": cases, "launches": part_count.launches - launches0}
+
+
 def phase_relax_phases(pg, seed: int, device) -> dict:
     """Where relax_rowptr_kernel's time goes: the diagnosis build records
     clock64() at each block's phase boundaries (source 0), at the main
@@ -3748,17 +3811,22 @@ def phase_slice(pg, device, seed: int) -> tuple[dict, dict]:
     runs = {}
     for name, prog, sources in programs:
         syncs0, launches0 = engines[name].host_syncs, relax_rowptr.launches
+        counts0 = engines[name].part_count_launches
         dist, traces, secs = _run(pg, prog, sources, cfg)
         runs[name] = {
             "dist": dist, "traces": traces, "seconds": secs,
             "host_syncs": engines[name].host_syncs - syncs0,
             "launches": relax_rowptr.launches - launches0,
+            "part_count_launches": engines[name].part_count_launches - counts0,
         }
     launches = relax_rowptr.launches
     variant_launches = dict(relax_rowptr.variant_launches)
+    count_launches = part_count.launches
     peak_bytes = torch.cuda.max_memory_allocated()
     # -- end of the main path ----------------------------------------------
     _check(launches > 0, "the main path launched the relax kernel no time")
+    _check_part_count_launches(count_launches, sum(r["part_count_launches"] for r in runs.values()),
+                               device, "the main path")
     for variant, _, _, prog in MAIN_VARIANTS:
         _check(variant_launches[variant] > 0, f"{variant} ({prog}) was never launched")
 
@@ -3793,6 +3861,7 @@ def phase_slice(pg, device, seed: int) -> tuple[dict, dict]:
             "supersteps": [t.n_supersteps for t in run["traces"]],
             "inner_iters": [int(t.inner_iters.sum()) for t in run["traces"]],
             "kernel_launches": run["launches"],
+            "part_count_launches": run["part_count_launches"],
             "host_syncs": run["host_syncs"],
             "engine_setup_s": setup_s[name],
             "cuda_s": run["seconds"],
@@ -3821,6 +3890,7 @@ def phase_slice(pg, device, seed: int) -> tuple[dict, dict]:
         "programs": report,
         "kernel_launches": launches,
         "variant_launches": variant_launches,
+        "part_count_launches": count_launches,
         "peak_device_bytes": peak_bytes,
         "bfs_source0_matches_host_bfs": True,
         "pagerank_max_rel_err": pagerank_err,
@@ -3862,6 +3932,17 @@ def phase_pipeline(pg, trace) -> tuple[dict, TimeFunction]:
 def _zero_launch_counts() -> None:
     relax_rowptr.launches = 0
     relax_rowptr.variant_launches = dict.fromkeys(VARIANTS, 0)
+    part_count.launches = 0
+
+
+def _check_part_count_launches(kernel: int, engines: int, device, what: str) -> None:
+    """The partition counters' kernel launches on a path (``kernel``, its
+    own count) against those its engines counted (``engines``, the sum of
+    their ``part_count_launches``): equal, and above 0 on the card."""
+    _check(kernel == engines, f"{what}: {kernel} partition-counter launches, the engines "
+           f"counted {engines}")
+    _check(device.type != "cuda" or kernel > 0,
+           f"{what} launched the partition counters' kernel no time")
 
 
 def _report_fields(rep) -> dict:
@@ -3885,16 +3966,20 @@ def _check_reports_equal(a, b, what: str) -> None:
 def _execute(pg, cfg, tau, plan, **run_kw):
     """One ``ElasticBSPExecutor.run`` of BFS from vertex 0, timed on the host
     clock; also the engine's own host reads (loop conditions + pulls, over
-    every engine the run used) and the relax kernel's launches in it."""
+    every engine the run used), the relax kernel's launches in it and the
+    partition counters' kernel launches, by the kernel and by the engines."""
     ex = ElasticBSPExecutor(pg, program=BfsProgram(), tau_scale=tau, config=cfg)
     first, syncs0, launches0 = ex.engine, ex.engine.host_syncs, relax_rowptr.launches
+    counts0, engine_counts0 = part_count.launches, first.part_count_launches
     t0 = time.perf_counter()
     rep = ex.run(0, plan, **run_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     engine_syncs = first.host_syncs - syncs0
+    engine_counts = first.part_count_launches - engine_counts0
     if ex.engine is not first:  # a mutation built the merged graph's engine
         engine_syncs += ex.engine.host_syncs
+        engine_counts += ex.engine.part_count_launches
     return ex, rep, {
         "cost_quanta": rep.cost.cost_quanta,
         "makespan_over_tmin": rep.cost.makespan_over_tmin,
@@ -3903,6 +3988,8 @@ def _execute(pg, cfg, tau, plan, **run_kw):
         "supersteps": rep.n_supersteps,
         "host_syncs_executor": rep.host_syncs, "host_syncs_engine": engine_syncs,
         "relax_launches": relax_rowptr.launches - launches0,
+        "part_count_launches": part_count.launches - counts0,
+        "part_count_launches_engine": engine_counts,
         "wall_s": wall,
     }
 
@@ -3964,8 +4051,12 @@ def phase_elastic(pg, bfs_row, trace, pred_tf, device, seed: int) -> dict:
     _zero_launch_counts()
     main = {name: run(name, cfg) for name in plans}
     launches, variant_launches = relax_rowptr.launches, dict(relax_rowptr.variant_launches)
+    count_launches = part_count.launches
     # -- end of the path -----------------------------------------------------
     _check(launches > 0, "the elastic path launched the relax kernel no time")
+    _check_part_count_launches(
+        count_launches, sum(line["part_count_launches_engine"] for _, _, line in main.values()),
+        device, "the elastic path")
     _check(main[cut_plan][1].replans > 0, f"{cut_plan}: the run outran its plan but never "
            "re-planned")
     table = {}
@@ -4013,6 +4104,7 @@ def phase_elastic(pg, bfs_row, trace, pred_tf, device, seed: int) -> dict:
         "program": "bfs", "source": 0, "window": ELASTIC_WINDOW, "tau_scale": tau,
         "t_min_s": LIVJ_T_MIN_S, "strategies": table, "plan_cut_run": cut_plan,
         "kernel_launches": launches, "variant_launches": variant_launches,
+        "part_count_launches": count_launches,
         "mutation": {"window": MUTATION_WINDOW, "at_superstep": MUTATION_STEP,
                      "inserts": MUTATION_INSERTS, **mutation},
         "repartition": repartitioned,
@@ -4045,6 +4137,7 @@ def _serve(pg, trace, cfg: ServiceConfig, ecfg: EngineConfig, rows: dict | None 
     also collects the completed queries' state rows (``_retired_rows``)."""
     engine = get_engine(pg, program=SsspProgram(), config=ecfg)
     syncs0, launches0 = engine.host_syncs, relax_rowptr.launches
+    counts0 = engine.part_count_launches
     splits0 = relax_rowptr.partition_launches
     t0 = time.perf_counter()
     with _retired_rows(rows) if rows is not None else contextlib.nullcontext():
@@ -4066,6 +4159,7 @@ def _serve(pg, trace, cfg: ServiceConfig, ecfg: EngineConfig, rows: dict | None 
         "host_syncs_engine": engine.host_syncs - syncs0,
         "relax_launches": relax_rowptr.launches - launches0,
         "partition_launches": relax_rowptr.partition_launches - splits0,
+        "part_count_launches_engine": engine.part_count_launches - counts0,
     }
 
 
@@ -4090,8 +4184,13 @@ def phase_serve(pg, trace, device, seed: int) -> dict:
         _, static = _serve(pg, trace_f, static_cfg, ecfg)
         rates[f"{f}mu"] = {"rate_qps": f * mu, "elastic": elastic, "static": static}
     launches, variant_launches = relax_rowptr.launches, dict(relax_rowptr.variant_launches)
+    count_launches = part_count.launches
     # -- end of the path -----------------------------------------------------
     _check(launches > 0, "the serving path launched the relax kernel no time")
+    _check_part_count_launches(
+        count_launches, burst["part_count_launches_engine"] + sum(
+            row[mode]["part_count_launches_engine"] for row in rates.values()
+            for mode in ("elastic", "static")), device, "the serving path")
     for key, row in rates.items():
         for mode in ("elastic", "static"):
             _check(row[mode]["relax_launches"] > 0, f"{key} {mode}: no relax launch")
@@ -4127,6 +4226,7 @@ def phase_serve(pg, trace, device, seed: int) -> dict:
                          "against_host_bfs": len(done[:SERVE_HOST_CHECKS])},
         "torch_backend_wall_s": plain_line["wall_s"],
         "kernel_launches": launches, "variant_launches": variant_launches,
+        "part_count_launches": count_launches,
     }
 
 
@@ -4306,17 +4406,21 @@ def _mesh_run(pg, mesh, prog, sources, mirror_degree) -> dict:
     _zero_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     stats0, reads0, pulls0 = mesh.stats.snapshot(), mprog.host_reads, eng.bulk_pulls
+    counts0 = eng.part_count_launches
     t0 = time.perf_counter()
     res = eng.run(sources)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, variants = relax_rowptr.launches, dict(relax_rowptr.variant_launches)
+    count_launches = part_count.launches
     # -- end of the path -----------------------------------------------------
     stats1 = mesh.stats.snapshot()
     run = {
         "wall_s": wall, "setup_s": setup_s,
         "host_reads": mprog.host_reads - reads0, "bulk_pulls": eng.bulk_pulls - pulls0,
         "launches": launches, "variant_launches": variants, "plane_edges": edges,
+        "part_count_launches": count_launches,
+        "part_count_launches_engine": eng.part_count_launches - counts0,
         "collective_s": stats1["seconds"] - stats0["seconds"],
         "collective_calls": {k: v - stats0["calls"].get(k, 0) for k, v in stats1["calls"].items()},
         "collective_bytes": {k: v - stats0["bytes"].get(k, 0) for k, v in stats1["bytes"].items()},
@@ -4418,7 +4522,8 @@ def _mesh_rank(shared: str, stages: list, probe: bool, swap_sources: list | None
         line["relayout_builds"] = ex.engine._mesh_prog.relayouts
         out["executor"] = {"line": line, "report": _report_fields(rep),
                            "host_rss_bytes": _rss(),
-                           "variant_launches": dict(relax_rowptr.variant_launches)}
+                           "variant_launches": dict(relax_rowptr.variant_launches),
+                           "part_count_launches": part_count.launches}
     return out
 
 
@@ -4571,6 +4676,7 @@ def phase_mesh(pg, runs: dict, bfs_trace, pred_tf, device, seed: int) -> dict:
         ("D2", 2, [(None, jobs)], False, None, None, None),
     )
     launches: dict = {v: 0 for v in VARIANTS}
+    counts = {"kernel": 0, "engines": 0}  # partition counters' launches, summed over ranks
     launch_s, results, summary = {}, {}, {}
     with _HostMemory() as host_mem:
         try:
@@ -4610,6 +4716,8 @@ def phase_mesh(pg, runs: dict, bfs_trace, pred_tf, device, seed: int) -> dict:
             for run in r["runs"].values():
                 for v, c in run["variant_launches"].items():
                     launches[v] += c
+                counts["kernel"] += run["part_count_launches"]
+                counts["engines"] += run["part_count_launches_engine"]
     probe = results["D8"][0].get("gloo_cuda_probe")
     planes = results["D8"][hub_rank].get("kernel_planes", [])
     _check(device.type != "cuda" or len(planes) == 2,
@@ -4650,6 +4758,8 @@ def phase_mesh(pg, runs: dict, bfs_trace, pred_tf, device, seed: int) -> dict:
     for r in ex_results:
         for v, c in r["executor"]["variant_launches"].items():
             launches[v] += c
+        counts["kernel"] += r["executor"]["part_count_launches"]
+        counts["engines"] += r["executor"]["line"]["part_count_launches_engine"]
     line = ex_results[0]["executor"]["line"]
     builds = [r["executor"]["line"]["relayout_builds"] for r in ex_results]
     summary["executor"] = {
@@ -4673,13 +4783,15 @@ def phase_mesh(pg, runs: dict, bfs_trace, pred_tf, device, seed: int) -> dict:
               "builds_by_rank": [sw["build"] for sw in swaps], "map_after": swaps[0]["map_after"]},
         share_s=share_s, kernel_planes=planes,
         gloo_cuda_probe=probe, host_memory=host_mem.report(),
-        variant_launches=launches, nvidia_smi=_nvidia_smi(),
+        variant_launches=launches, part_count_launches=counts["kernel"],
+        nvidia_smi=_nvidia_smi(),
         phase_s=time.perf_counter() - t_phase,
         note="one card time-sliced between D rank processes; gloo copies the CUDA payloads "
              "through host memory",
     )
     _check(device.type != "cuda" or sum(launches.values()) > 0,
            "the mesh path launched the relax kernel no time")
+    _check_part_count_launches(counts["kernel"], counts["engines"], device, "the mesh path")
     return summary
 
 
@@ -4767,7 +4879,8 @@ def phase_analysis(pg, device, seed: int) -> dict:
 def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
                  seg_livj: dict, path_launches: dict, mesh_planes: list, gnn: dict,
                  gnn_case: dict, lm: dict, recsys: dict, train_line: dict,
-                 model_axis: dict, serve_mesh: dict, gnn_ranks: dict) -> dict:
+                 model_axis: dict, serve_mesh: dict, gnn_ranks: dict, counts: dict,
+                 count_paths: dict) -> dict:
     """One entry per kernel the main path launched, with its numbers at the
     main path's own shape: the relax kernel's local closure reduction, the
     segment sum over uniform ids, the flash kernel at the Mixtral 32k
@@ -4786,7 +4899,11 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
     path (every GQA layer's prefill), the model_axis path (every GQA
     layer's prefill on each rank's heads, summed over the ranks) and each
     model's layer-0 case (the train path launches it no time: it has no
-    backward)."""
+    backward).  The partition counters' entry holds the closure's call at a
+    sparse frontier, its other cases under ``cases``, and its launches on
+    the slice, elastic, serving and mesh paths (``count_paths``, each read
+    around its own path and held to its engines' ``part_count_launches``;
+    the mesh path's summed over its ranks)."""
     entries = []
     for variant, _, _, prog in MAIN_VARIANTS:
         cases = checks[variant]
@@ -4853,6 +4970,21 @@ def kernels_line(checks: dict, variant_launches: dict, seg: dict, flash: dict,
             "cases": [{k: c[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms")} for c in more],
         })
+    main, *more = counts["cases"]
+    entries.append({
+        "name": "part_count_kernel",
+        "route": "cuda",
+        "source": PART_COUNT_SOURCE,
+        "replaces": PART_COUNT_REPLACES,
+        "launches": counts["launches"],
+        "launches_by_path": {"part_count": counts["launches"], **count_paths},
+        "max_abs_err": max(c["max_abs_err"] for c in counts["cases"]),
+        **{k: main[k] for k in ("ms", "ms_back_to_back", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "library", "case")},
+        "shape": {k: main[k] for k in ("R", "n", "P", "W", "density")},
+        "cases": [{k: c[k] for k in ("case", "ms", "ms_back_to_back", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")} for c in more],
+    })
     return {"kernels": entries}
 
 
@@ -4901,6 +5033,8 @@ def main(argv=None) -> int:
     checks = phase_kernels(pg, args.seed, device)
     report["kernel"] = checks
     _emit("kernel", {"variants": checks})
+    report["part_count"] = phase_part_count(pg, args.seed, device)
+    _emit("part_count", report["part_count"])
     report["relax_phases"] = phase_relax_phases(pg, args.seed, device)
     _emit("relax_phases", report["relax_phases"])
     report["oracle"] = phase_oracles(device, args.seed)
@@ -4929,7 +5063,9 @@ def main(argv=None) -> int:
         {path: report[path]["variant_launches"] for path in ("elastic", "serve", "mesh")},
         report["mesh"]["kernel_planes"], report["gnn"], gnn_case, report["lm"],
         report["recsys"], report["train"], report["model_axis"], report["serve_mesh"],
-        report["gnn_ranks"],
+        report["gnn_ranks"], report["part_count"],
+        {path: report[path]["part_count_launches"] for path in ("slice", "elastic", "serve",
+                                                                "mesh")},
     )["kernels"]
     report["wall_s"] = time.perf_counter() - t_start
     report["phase_seconds"] = dict(PHASE_SECONDS)

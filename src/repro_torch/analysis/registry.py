@@ -72,6 +72,14 @@ HOT_PATH_FUNCTIONS = (
         "kernels/flash_attention/kernel.py", "__call__", ("q", "k", "v"),
         "the flash kernel's launch wrapper",
     ),
+    HotPathFn(
+        "kernels/part_count/ops.py", "part_counts", ("x", "part_of"),
+        "every partition counter of a window",
+    ),
+    HotPathFn(
+        "kernels/part_count/kernel.py", "__call__", ("x", "part_of"),
+        "the partition-counter kernel's launch wrapper",
+    ),
 )
 
 #: the helpers through which a counted host read goes: (the file that

@@ -29,9 +29,11 @@ builds engines the way a caller does.  The checks:
         window reads a value computed from ``all_reduce`` results only (a
         loop condition on a rank-local value lets iteration counts diverge).
   JX03  every launch grid passes ``kernels.build.check_grid``
-        (``grid_findings``), and one ran before every launch; backend ``"cuda"`` launches the relax kernel,
-        ``"torch"`` never does; a layout's ``row_ptr`` is split once, not
-        again in a later window.  AL03's intent -- a kernel writes every
+        (``grid_findings``), and one ran before every launch of each
+        kernel; backend ``"cuda"`` launches the relax and the
+        partition-counter kernels, ``"torch"`` neither; a layout's
+        ``row_ptr`` is split once, not again in a later window.  AL03's
+        intent -- a kernel writes every
         output element -- is ``check_poisoned_output``: each kernel wrapper
         launched into poisoned memory must still equal its plain version.
   JX04  host numpy over ``structs.mesh_layout_key`` and the layout caches:
@@ -92,6 +94,7 @@ from repro_torch.kernels.bfs_relax.ref import relax_reference
 from repro_torch.kernels.flash_attention import kernel as flash_module
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import reference_attention
+from repro_torch.kernels.part_count import kernel as part_count_module
 from repro_torch.kernels.segment_sum import kernel as segment_module
 from repro_torch.kernels.segment_sum.ops import sorted_segment_sum
 from repro_torch.kernels.segment_sum.ref import reference_segment_sum
@@ -288,14 +291,22 @@ def _recording_calls(module, name: str):
         setattr(module, name, orig)
 
 
+#: the launch wrappers' modules, each calling ``check_grid`` before its launches
+_WRAPPER_MODULES = {
+    "relax": relax_module, "segment_sum": segment_module, "flash": flash_module,
+    "part_count": part_count_module,
+}
+
+
 @contextlib.contextmanager
 def _recording_grids():
-    """Record every ``check_grid`` call of the three launch wrappers."""
+    """Record every ``check_grid`` call of the four launch wrappers, by
+    wrapper."""
     with contextlib.ExitStack() as stack:
-        calls = []
-        for module in (relax_module, segment_module, flash_module):
-            calls.append(stack.enter_context(_recording_calls(module, "check_grid")))
-        yield calls
+        yield {
+            name: stack.enter_context(_recording_calls(module, "check_grid"))
+            for name, module in _WRAPPER_MODULES.items()
+        }
 
 
 # -- JX01: host traffic -------------------------------------------------------
@@ -344,7 +355,8 @@ def audit_window(engine, state, k: int, label: str, *, first: bool = True):
     mesh = getattr(engine._mesh_prog, "mesh", None)
     syncs0, pulls0 = engine.host_syncs, engine.bulk_pulls
     kern = relax_module.relax_rowptr
-    launches0, parts0 = kern.launches, kern.partition_launches
+    counter = part_count_module.part_count
+    launches0, parts0, counts0 = kern.launches, kern.partition_launches, counter.launches
     log = OpLog()
     with contextlib.ExitStack() as stack:
         helper = stack.enter_context(_recording_calls(traversal_module, "_to_host"))
@@ -368,12 +380,13 @@ def audit_window(engine, state, k: int, label: str, *, first: bool = True):
             "transfers: a copy bypassed the counted helper",
         ))
     launches = kern.launches - launches0
-    checks = [g for calls in grids for g in calls]
-    if launches > len(checks):
-        findings.append(Finding(
-            "JX03", label, f"{launches} launch(es) but {len(checks)} grid check(s): "
-            "a launch ran without check_grid",
-        ))
+    count_launches = counter.launches - counts0
+    for name, n in (("relax", launches), ("part_count", count_launches)):
+        if n > len(grids[name]):
+            findings.append(Finding(
+                "JX03", label, f"{n} {name} launch(es) but {len(grids[name])} grid "
+                "check(s): a launch ran without check_grid",
+            ))
     # a window launches the kernel unless it has no edge to relax (a mesh
     # plane with no valid edge on this rank launches nothing) or it began
     # after the traversal had converged (it runs no superstep)
@@ -387,7 +400,8 @@ def audit_window(engine, state, k: int, label: str, *, first: bool = True):
         "reads": log.reads, "transfers": transfers, "pulls": pulls,
         "ops": len(log.records), "inner_iters": inner_iters, "launches": launches,
         "partition_launches": kern.partition_launches - parts0,
-        "grid_checks": len(checks), "events": log.events,
+        "part_count_launches": count_launches,
+        "grid_checks": sum(map(len, grids.values())), "events": log.events,
         "transfers_per_pull": transfers / pulls if pulls else None,
     }
     findings += _launch_findings(engine.backend, stats, label, first, has_edges and not converged)
@@ -443,6 +457,19 @@ def _launch_findings(
         findings.append(Finding(
             "JX03", label, f"backend 'torch' launched the CUDA relax kernel "
             f"{stats['launches']} time(s)",
+        ))
+    # every window counts its partition activity at its end, so a window on
+    # the kernel launches the counters' kernel at least once
+    if backend == "cuda" and stats["part_count_launches"] == 0:
+        findings.append(Finding(
+            "JX03", label,
+            "backend 'cuda' selected but the window launched the partition-counter "
+            "kernel no time -- it silently ran the plain version",
+        ))
+    if backend == "torch" and stats["part_count_launches"]:
+        findings.append(Finding(
+            "JX03", label, f"backend 'torch' launched the CUDA partition-counter kernel "
+            f"{stats['part_count_launches']} time(s)",
         ))
     if not first and stats["partition_launches"]:
         findings.append(Finding(

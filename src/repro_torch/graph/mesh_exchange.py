@@ -103,6 +103,7 @@ from repro_torch.graph.structs import (
 )
 from repro_torch.kernels.bfs_relax.ops import relax_blockmap_call
 from repro_torch.kernels.build import validate_backend
+from repro_torch.kernels.part_count.ops import part_counts
 
 def plane_shards(pg: PartitionedGraph, program: VertexProgram, ml):
     """Per-device ``(lw, rw, mw)`` edge planes for a program: the layout's
@@ -253,16 +254,16 @@ class _Plane(NamedTuple):
     slot: torch.Tensor  # [e_pad] int64 ascending rows (fed-slot counts)
     n_valid: int
     n_seg: int
-    deg: torch.Tensor  # [n_pad] int64 valid out-edges of each local row
+    deg: torch.Tensor  # [n_pad] int32 valid out-edges of each local row
     recv: torch.Tensor | None  # [D * pad] int64 local row of each received slot
 
 
 class _Parts(NamedTuple):
-    """Rows of this rank grouped by partition, for exact per-partition sums
-    (``traversal._part_sums``)."""
+    """This rank's rows by partition, for exact per-partition sums
+    (``kernels.part_count.ops.part_counts``)."""
 
-    part_order: torch.Tensor  # [n_valid_rows] int64 local rows by partition
-    part_bounds: torch.Tensor  # [P + 1] int64 group offsets
+    part_of: torch.Tensor  # [n_pad] int32 partition of each local row, -1 on padding
+    msg_deg: torch.Tensor  # [n_pad] int32 messages a row sends: wire + mirror out-edges
 
 
 class _RankConsts(NamedTuple):
@@ -304,19 +305,16 @@ def build_window_consts(
             row_ptr=t(ml.row_ptr(kind)) if backend == "cuda" else None,
             dst=None if backend == "cuda" else slot,
             slot=slot, n_valid=n_valid, n_seg=n_seg,
-            deg=torch.bincount(src_d[valid_d], minlength=ml.n_pad),
+            deg=torch.bincount(src_d[valid_d], minlength=ml.n_pad).to(torch.int32),
             recv=None if recv is None else t(np.asarray(recv).reshape(-1), torch.int64),
         )
 
     local = plane("local", ml.lsrc, lw, ml.lvalid, None)
     wire = plane("wire", ml.rsrc, rw, ml.rvalid, ml.recv_idx)
     mirror = plane("mirror", ml.msrc, mw, ml.mvalid, ml.mrecv_idx) if ml.m_pad > 0 else None
-    part = np.asarray(ml.part_of_pos).astype(np.int64)
-    rows = np.flatnonzero(np.asarray(ml.pos_valid))
-    order = rows[np.argsort(part[rows], kind="stable")]
-    bounds = np.zeros(pg.n_parts + 1, dtype=np.int64)
-    np.cumsum(np.bincount(part[rows], minlength=pg.n_parts), out=bounds[1:])
-    return _RankConsts(local, wire, mirror, _Parts(t(order), t(bounds)))
+    part_of = np.where(np.asarray(ml.pos_valid), np.asarray(ml.part_of_pos), -1)
+    msg_deg = wire.deg if mirror is None else wire.deg + mirror.deg
+    return _RankConsts(local, wire, mirror, _Parts(t(part_of, torch.int32), msg_deg))
 
 
 class MeshTraversalProgram:
@@ -443,8 +441,6 @@ class MeshTraversalProgram:
         """Run up to ``m_max`` supersteps on the active layout; returns
         ``((dist, frontier, nst, we, wv, ms, it, sg, wire), pact, done)`` with
         ``dist``/``frontier`` this rank's blocks and every counter global."""
-        from repro_torch.graph.traversal import _part_sums
-
         c = self._consts
         mesh, prog = self.mesh, self.program
         s_batch = dist.shape[0]
@@ -520,20 +516,20 @@ class MeshTraversalProgram:
             wire_s = fed_slots(c.wire, active_re, send)
             return all_to_all(send, self.layout.w_pad), wire_s
 
-        def part_sums(x):
-            return _part_sums(x, c.parts)
+        def part_sums(x, *weights):
+            return part_counts(x, weights, c.parts.part_of, p, self.backend)
 
         def stationary_superstep(d, fr, nst):
             nst = nst + g_any(fr.any(dim=1), "pmax_boundary").to(i32)
             active_le = active_of(c.local, fr)
             acc = reduce(c.local, candidates(c.local, d, active_le), identity_base(d.shape[1]))
-            we_s = part_sums(fr * c.local.deg)
-            wv_s = part_sums(fr)
+            # every message a row sends goes out in this superstep: the wire's
+            # and, on a mirrored layout, the mirror's
+            we_s, wv_s, ms_s = part_sums(fr, c.local.deg, None, c.parts.msg_deg).split(s_batch)
             it_s = g_any(fr.any(dim=1), "pmax_boundary").to(i32)
             active_re = active_of(c.wire, fr)
             recv, wire_s = exchange(d, active_re)
             acc = receive(acc, c.wire, recv)
-            ms_s = part_sums(fr * c.wire.deg)
             if use_mirror:
                 # stateless mirror: apply() is arbitrary, so every
                 # superstep's aggregate must arrive
@@ -543,7 +539,6 @@ class MeshTraversalProgram:
                 )
                 wire_s = wire_s + fed_slots(c.mirror, active_me, msend)
                 acc = receive(acc, c.mirror, all_to_all(msend, self.layout.m_pad))
-                ms_s = ms_s + part_sums(fr * c.mirror.deg)
             new_d = prog.apply(d, acc, n_global)
             next_fr = fr & prog.keep_running(nst)[:, None]
             return new_d, next_fr, nst, we_s, wv_s, ms_s, it_s, wire_s, 0
@@ -562,7 +557,7 @@ class MeshTraversalProgram:
                 active_e = active_of(c.local, f_i)
                 new_d = reduce(c.local, candidates(c.local, d_i, active_e), d_i)
                 improved = prog.is_active(new_d, d_i)
-                sums = part_sums(torch.cat([f_i * c.local.deg, f_i]))
+                sums = part_sums(f_i, c.local.deg, None)
                 we_s = we_s + sums[:s_batch]
                 wv_s = wv_s + sums[s_batch:]
                 it_s = it_s + g_any(f_i.any(dim=1), "pmax_closure").to(i32)
@@ -573,7 +568,8 @@ class MeshTraversalProgram:
             active_re = active_of(c.wire, touched)
             recv, wire_s = exchange(d_i, active_re)
             new_d = receive(d_i, c.wire, recv)
-            ms_s = part_sums(touched * c.wire.deg)
+            # the wire's messages and, on a mirrored layout, the mirror's
+            ms_s = part_sums(touched, c.parts.msg_deg)
             if use_cache:
                 # mirror sync: combine into the window-local cache, send only
                 # the slots whose best value improved
@@ -582,7 +578,6 @@ class MeshTraversalProgram:
                 msend = torch.where(prog.is_active(new_mc, mcache), new_mc, ident)
                 wire_s = wire_s + (msend != ident).sum(dim=1).to(i32)
                 new_d = receive(new_d, c.mirror, all_to_all(msend, self.layout.m_pad))
-                ms_s = ms_s + part_sums(touched * c.mirror.deg)
                 mcache = new_mc
             next_fr = prog.is_active(new_d, d_i)
             return new_d, next_fr, nst, we_s, wv_s, ms_s, it_s, wire_s, iters, mcache
@@ -625,7 +620,7 @@ class MeshTraversalProgram:
                 f"{cond_evals} superstep conditions for {s} supersteps of {m_max}"
             )
         # -- epilogue: one SUM of every counter and the partition activity --
-        pact_local = part_sums(fr)
+        pact_local = part_sums(fr, None)
         flat = torch.cat([x.reshape(-1) for x in (we, wv, ms, wire, pact_local)])
         flat = mesh.all_reduce(flat, "sum")
         sizes = [we.numel()] * 3 + [wire.numel(), pact_local.numel()]

@@ -17,15 +17,18 @@ Every value reduction -- the local closure and the remote exchange --
 goes through ``kernels.bfs_relax.ops.make_relax_fn``: the hand-written CUDA
 kernel on a card (``backend="cuda"``, the default there), the plain
 ``scatter_reduce_`` version on the CPU (``backend="torch"``).  Candidate
-gathers, counters and frontier logic are torch ops under both backends, so
-counters and superstep counts are identical across them.
+gathers and frontier logic are torch ops under both backends; the
+partition counters go through ``kernels.part_count.ops.part_counts`` (the
+hand-written kernel on a card, the plain version on the CPU), which gives
+the same integers on both, so counters and superstep counts are identical
+across them.
 
 The work counters are computed per vertex, not per edge: the local edges a
 frontier vertex examines are its local out-degree, so ``edges_examined`` is
 the per-partition sum of ``frontier * local_out_degree`` -- the same integers
 the JAX package's per-edge ``segment_sum`` gives, from an ``[S, n]`` pass in
-place of an ``[S, E]`` one.  Per-partition sums are an exact int64 prefix
-sum over vertices grouped by partition (no atomics).
+place of an ``[S, E]`` one.  Per-partition sums are exact integers: one
+pass over the frontier rows with each vertex's part id and weights.
 
 Host syncs.  The JAX package runs a whole window as one jitted
 ``lax.while_loop``.  In eager torch the superstep condition and the inner
@@ -42,10 +45,10 @@ mesh program's included) and ``engine.pull`` (the bulk pull to numpy, also
 condition read), ``engine.closure`` (one local closure iteration) and
 ``engine.exchange`` (the remote exchange), each holding ``engine.gather``
 (the frontier and candidate gathers over ``[S, E]``), ``engine.relax`` (the
-relax call) and ``engine.counters`` (the partition counters' scan), plus
-the window's last ``engine.counters``.  A stationary superstep has its
+relax call) and ``engine.counters`` (one ``part_counts`` call), plus the
+window's last ``engine.counters``.  A stationary superstep has its
 gathers, relax calls and counters only.  ``TraversalEngine.scan_elems``
-counts the counters' work: rows × n summed over every scan.
+counts the counters' work: rows × n of every weighting of every call.
 
 ``run`` executes one batched traversal of depth ``m_max`` and returns numpy
 leaves; ``init_state`` / ``run_window`` run it resumably, leaving the
@@ -85,6 +88,8 @@ from repro_torch.graph.program import (
 )
 from repro_torch.graph.structs import PartitionedGraph, side_cache
 from repro_torch.kernels.bfs_relax.ops import make_relax_fn, validate_backend
+from repro_torch.kernels.part_count.kernel import part_count
+from repro_torch.kernels.part_count.ops import part_counts
 from repro_torch.spans import span
 
 def _pg_cached(pg: PartitionedGraph, name: str, key: tuple, build):
@@ -102,28 +107,23 @@ class _DeviceArrays(NamedTuple):
     lw: torch.Tensor  # [E_local] float32 graph weights
     rsrc: torch.Tensor  # [E_remote] int32
     rw: torch.Tensor  # [E_remote] float32
-    ldeg: torch.Tensor  # [n] int64 local out-degree per vertex
-    rdeg: torch.Tensor  # [n] int64 remote out-degree per vertex
-    part_order: torch.Tensor  # [n] int64 vertices grouped by partition
-    part_bounds: torch.Tensor  # [P + 1] int64 group offsets into part_order
+    ldeg: torch.Tensor  # [n] int32 local out-degree per vertex
+    rdeg: torch.Tensor  # [n] int32 remote out-degree per vertex
+    part_of: torch.Tensor  # [n] int32 partition of each vertex
 
 
 def _device_arrays(pg: PartitionedGraph, device: torch.device) -> _DeviceArrays:
     def build():
         layout = partitioned_edge_layout(pg)
         n = pg.graph.n_vertices
-        vpart = pg.part_of_vertex.astype(np.int64)
-        bounds = np.zeros(pg.n_parts + 1, dtype=np.int64)
-        np.cumsum(np.bincount(vpart, minlength=pg.n_parts), out=bounds[1:])
         host = _DeviceArrays(
             lsrc=layout.local.src,
             lw=layout.local.weights,
             rsrc=layout.remote.src,
             rw=layout.remote.weights,
-            ldeg=np.bincount(layout.local.src, minlength=n).astype(np.int64),
-            rdeg=np.bincount(layout.remote.src, minlength=n).astype(np.int64),
-            part_order=np.argsort(vpart, kind="stable").astype(np.int64),
-            part_bounds=bounds,
+            ldeg=np.bincount(layout.local.src, minlength=n).astype(np.int32),
+            rdeg=np.bincount(layout.remote.src, minlength=n).astype(np.int32),
+            part_of=pg.part_of_vertex.astype(np.int32),
         )
         return _DeviceArrays(*(torch.as_tensor(a, device=device) for a in host))
 
@@ -155,15 +155,6 @@ def plane_arrays(pg: PartitionedGraph, program: VertexProgram, device):
     return _pg_cached(
         pg, "_plane_device_arrays", (str(program.plane_key), str(device)), build
     )
-
-
-def _part_sums(x: torch.Tensor, dev: _DeviceArrays) -> torch.Tensor:
-    """``[R, n]`` integer/bool per-vertex values -> ``[R, P]`` int32 sums per
-    partition, exact: an int64 prefix sum over partition-grouped vertices."""
-    cs = torch.cumsum(x.index_select(1, dev.part_order).to(torch.int64), dim=1)
-    cs = torch.nn.functional.pad(cs, (1, 0))
-    at = cs.index_select(1, dev.part_bounds)
-    return (at[:, 1:] - at[:, :-1]).to(torch.int32)
 
 
 class SuperstepResult(NamedTuple):
@@ -315,7 +306,10 @@ class TraversalEngine:
     ``bulk_pulls`` counts the bulk pulls alone: a window's or a run's
     counters (with a dense run's state), and each state tensor a mesh
     gathers from its ranks to the host.  ``scan_elems`` counts the dense
-    window's partition-counter work: rows × n of every ``_part_sums``.
+    window's partition-counter work: rows × n of every weighting of every
+    ``part_counts`` call.  ``part_count_launches`` counts the partition
+    counters' kernel launches of this engine's windows (0 on the ``torch``
+    backend).
     """
 
     def __init__(
@@ -343,6 +337,7 @@ class TraversalEngine:
         self.host_syncs = 0
         self.bulk_pulls = 0
         self.scan_elems = 0
+        self.part_count_launches = 0
         self._mesh_prog = None
         if cfg.mesh is not None and cfg.mesh.world_size > 1:
             if self.collect_subgraphs:
@@ -458,9 +453,9 @@ class TraversalEngine:
             hits = torch.zeros((s_batch, self.n_subgraphs), dtype=i32, **kw)
             return hits.index_add_(1, self._sg, f.to(i32)) > 0
 
-        def part_sums(x):
-            self.scan_elems += x.shape[0] * x.shape[1]
-            return _part_sums(x, dev)
+        def part_sums(x, *weights):
+            self.scan_elems += len(weights) * x.shape[0] * x.shape[1]
+            return part_counts(x, weights, dev.part_of, p, self.backend)
 
         def stationary_body(d, fr, nst):
             # one gather pass over local + remote edges, program.apply at the
@@ -472,8 +467,7 @@ class TraversalEngine:
                 acc = self._relax_l(cand, identity_base())
             del cand
             with span("engine.counters"):
-                sums = part_sums(torch.cat([fr * dev.ldeg, fr * dev.rdeg, fr]))
-            we_s, ms_s, wv_s = sums[:s_batch], sums[s_batch:-s_batch], sums[-s_batch:]
+                we_s, ms_s, wv_s = part_sums(fr, dev.ldeg, dev.rdeg, None).split(s_batch)
             it_s = fr.any(dim=1).to(i32)  # one pass per superstep
             with span("engine.gather"):
                 active_re = fr.index_select(1, dev.rsrc)
@@ -502,7 +496,7 @@ class TraversalEngine:
                     del cand  # not held into the next gather: one [S, E] buffer at a time
                     improved = prog.is_active(new_d, d_i)
                     with span("engine.counters"):
-                        sums = part_sums(torch.cat([f_i * dev.ldeg, f_i]))
+                        sums = part_sums(f_i, dev.ldeg, None)
                     we_s = we_s + sums[:s_batch]
                     wv_s = wv_s + sums[s_batch:]
                     it_s = it_s + f_i.any(dim=1).to(i32)
@@ -517,7 +511,7 @@ class TraversalEngine:
                 del cand
                 next_fr = prog.is_active(new_d, d_i)
                 with span("engine.counters"):
-                    ms_s = part_sums(touched * dev.rdeg)
+                    ms_s = part_sums(touched, dev.rdeg)
             return new_d, next_fr, we_s, wv_s, ms_s, it_s
 
         superstep_body = stationary_body if prog.stationary else monotone_body
@@ -538,21 +532,26 @@ class TraversalEngine:
         # next-superstep partition activity + done flags, computed on the
         # device so a placement decision needs no [n]-sized pull
         with span("engine.counters"):
-            pact = part_sums(fr) > 0
+            pact = part_sums(fr, None) > 0
         done = ~fr.any(dim=1)
         wire = torch.zeros((s_batch, m_max), dtype=i32, **kw)  # dense: no wire
         return TraversalResult(d, fr, nst, we, wv, ms, it, sg, wire), pact, done
 
     def _launch(self, dist, frontier, nst0, k: int):
         """One window on whichever program this engine runs; the mesh
-        program's loop reads count into ``host_syncs``."""
+        program's loop reads count into ``host_syncs``, the partition
+        counters' kernel launches into ``part_count_launches``."""
+        launches0 = part_count.launches
         with span("engine.window"):
             if self._mesh_prog is not None:
                 reads0 = self._mesh_prog.host_reads
                 res, pact, done = self._mesh_prog.window(dist, frontier, nst0, k)
                 self.host_syncs += self._mesh_prog.host_reads - reads0
-                return TraversalResult(*res), pact, done
-            return self._window_impl(dist, frontier, nst0, k)
+                out = TraversalResult(*res), pact, done
+            else:
+                out = self._window_impl(dist, frontier, nst0, k)
+        self.part_count_launches += part_count.launches - launches0
+        return out
 
     # -- host API ------------------------------------------------------------
 

@@ -6,8 +6,10 @@
                      (``segment_sum/csrc/segment_sum.cu``)
   flash_attention -- causal / sliding-window GQA attention, forward
                      (``flash_attention/csrc/flash_attention.cu``)
+  part_count      -- the BSP window loop's per-partition frontier sums
+                     (``part_count/csrc/part_count.cu``)
 
-All three are CUDA C++ for sm_90a, built by ``build.py`` (one ``nvcc``
+All four are CUDA C++ for sm_90a, built by ``build.py`` (one ``nvcc``
 build step for all) at first use.
 
 Each package ships ``csrc/`` (the CUDA source), ``kernel.py`` (build at

@@ -1,5 +1,5 @@
 """The CUDA kernels on the card, against their plain versions: relax,
-segment sum and flash attention; the elastic executor and the serving
+segment sum, flash attention and the partition counters; the elastic executor and the serving
 loop on the card, whose reports must equal the ``torch`` backend's; and
 the GNN models, whose every segment sum runs on the kernel, against the
 ``torch`` backend (halo PNA against the dense forward).
@@ -10,7 +10,8 @@ a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances.  Relax: ``min`` is bit-exact; ``sum`` is ``rtol=1e-5,
+Tolerances.  Partition counters: bit-exact, and the engine's counters
+bit-identical across backends.  Relax: ``min`` is bit-exact; ``sum`` is ``rtol=1e-5,
 atol=1e-9`` (both sum float32 in float64, in different orders).  Segment
 sum: per segment, ``|kernel - plain| <= 1e-5 * sum(|vals|)`` over the
 segment (both sum in float32, in different orders; an empty segment is
@@ -75,6 +76,7 @@ from repro_torch.kernels.flash_attention import (
     reference_attention,
 )
 from repro_torch.kernels.flash_attention.kernel import variant_for
+from repro_torch.kernels.part_count import part_count, part_counts, part_counts_reference
 from repro_torch.kernels.segment_sum import (
     reference_segment_sum,
     segment_sum_sorted,
@@ -223,15 +225,21 @@ def test_engine_on_cuda_matches_torch_backend(cuda_device, name):
     pg = partitioned_graph_from_numpy(
         g.n_vertices, g.src, g.dst, g.weights, host.n_parts, host.part_of_vertex
     )
+    from torch.profiler import ProfilerActivity, profile
+
     results = {}
     for backend in ("cuda", "torch"):
         cfg = EngineConfig(device="cuda", backend=backend, m_max=64)
         before = relax_rowptr.launches
-        results[backend] = TraversalEngine(
-            pg, program=BUILTIN_PROGRAMS[name](), config=cfg
-        ).run([0, 37, 200])
+        eng = TraversalEngine(pg, program=BUILTIN_PROGRAMS[name](), config=cfg)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            results[backend] = eng.run([0, 37, 200])
         launched = relax_rowptr.launches - before
         assert (launched > 0) == (backend == "cuda")
+        # one counters kernel launch a partition-counter call, and none on torch
+        counters = sum(1 for ev in prof.events() if ev.name == "engine.counters")
+        assert counters > 0
+        assert eng.part_count_launches == (counters if backend == "cuda" else 0)
     kern, plain = results["cuda"], results["torch"]
     for field in kern._fields:
         a, b = getattr(kern, field), getattr(plain, field)
@@ -243,6 +251,85 @@ def test_engine_on_cuda_matches_torch_backend(cuda_device, name):
                 np.testing.assert_allclose(row, exact, rtol=1e-5, atol=1e-9)
         else:
             np.testing.assert_array_equal(a, b, err_msg=field)
+
+
+# -- the partition counters --------------------------------------------------------
+
+#: the largest degree of the LiveJournal-sized R-MAT graph of
+#: ``bench/configs/livj-8p.json`` (measured on its instance)
+LIVJ_MAX_DEGREE = 93_326
+
+
+def _count_inputs(r, n, p, n_weights, none_at, density, device, seed, max_weight=5000):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand((r, n), generator=gen, device=device) < density
+    part_of = torch.randint(0, p, (n,), generator=gen, device=device, dtype=torch.int32)
+    drop = torch.rand(n, generator=gen, device=device) < 0.1
+    part_of = torch.where(drop, torch.full_like(part_of, -1), part_of)
+    weights = tuple(
+        None if w in none_at else torch.randint(
+            0, max_weight + 1, (n,), generator=gen, device=device, dtype=torch.int32)
+        for w in range(n_weights)
+    )
+    return x, weights, part_of
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.3, 1.0, 0.001])
+@pytest.mark.parametrize("r", [1, 3, 16, 32])
+@pytest.mark.parametrize("p", [1, 8, 40])
+@pytest.mark.parametrize(
+    "n_weights,none_at", [(1, ()), (2, (1,)), (3, (2,)), (3, (0, 2))],
+    ids=["w1", "w2-none", "w3-none", "w3-two-none"],
+)
+def test_part_count_kernel_matches_plain_version(cuda_device, r, p, n_weights, none_at, density):
+    """Bit for bit, at an n that is not a multiple of 16 (a last, partial
+    chunk, and rows that start off any word boundary) and with ids of -1
+    (rows that count nowhere)."""
+    n = 4096 * 3 + 16 * 5 + 7
+    x, weights, part_of = _count_inputs(r, n, p, n_weights, none_at, density, cuda_device,
+                                        seed=r * 100 + p)
+    before = part_count.launches
+    out = part_count(x, weights, part_of, p)
+    ref = part_counts_reference(x, weights, part_of, p)
+    torch.cuda.synchronize()
+    assert part_count.launches == before + 1
+    assert out.dtype == torch.int32 and out.shape == (n_weights * r, p)
+    assert torch.equal(out, ref)
+    assert torch.equal(part_counts(x, weights, part_of, p), ref)  # the entry's default
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,p,n_weights,n", [
+    (32, 8, 2, 5_062_474), (16, 8, 1, 5_062_474), (16, 40, 3, 5_062_474), (200, 40, 3, 300_007),
+])
+def test_part_count_kernel_at_the_main_path_shape(cuda_device, r, p, n_weights, n):
+    """LiveJournal's vertices, weights up to its largest degree, a sparse
+    and an all-true frontier; and a shape whose counters fill more than one
+    row group."""
+    for density in (0.01, 1.0):
+        x, weights, part_of = _count_inputs(
+            r, n, p, n_weights, (n_weights - 1,), density, cuda_device, seed=r + p,
+            max_weight=LIVJ_MAX_DEGREE,
+        )
+        out = part_count(x, weights, part_of, p)
+        ref = part_counts_reference(x, weights, part_of, p)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (density, (out - ref).abs().max())
+
+
+@pytest.mark.cuda
+def test_part_count_kernel_refuses_a_zero_row_launch(cuda_device):
+    part_of = torch.zeros(100, dtype=torch.int32, device=cuda_device)
+    before = part_count.launches
+    with pytest.raises(ValueError, match="zero dimension"):
+        part_count(torch.zeros((0, 100), dtype=torch.bool, device=cuda_device), (None,),
+                   part_of, 8)
+    assert part_count.launches == before
+    # the entry answers an empty frontier without a launch
+    empty = part_counts(torch.zeros((0, 100), dtype=torch.bool, device=cuda_device),
+                        (None,), part_of, 8)
+    assert empty.shape == (0, 8) and part_count.launches == before
 
 
 SEG_SHAPES = {
@@ -523,6 +610,7 @@ def _rank_mesh_run(name: str, mirror_degree) -> dict:
     return {
         "result": {f: getattr(res, f) for f in res._fields},
         "launches": relax_rowptr.launches - before,
+        "part_count_launches": eng.part_count_launches,
         "holds_edges": eng._mesh_prog.layout.plane("local", mesh.rank)[2]
         + eng._mesh_prog.layout.plane("wire", mesh.rank)[2] > 0,
         "mesh": mesh.describe(),
@@ -536,6 +624,7 @@ def _assert_mesh_equals_dense(ranks, name):
     ).run([0, 37, 200])
     for rank in ranks:
         assert not rank["holds_edges"] or rank["launches"] > 0
+        assert rank["part_count_launches"] > 0
         res = rank["result"]
         for field in dense._fields:
             a, b = res[field], getattr(dense, field)
