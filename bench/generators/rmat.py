@@ -18,6 +18,9 @@ import torch
 
 from bench.graphs import BenchGraph, both_directions, components, generator, undirected, uniform_weights
 
+#: the keys that shrink a configuration to a test's size
+TINY = {"scale": 10}
+
 
 def generate(cfg: dict, seed: int, device) -> BenchGraph:
     scale = int(cfg["scale"])

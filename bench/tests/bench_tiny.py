@@ -1,6 +1,8 @@
 """Tiny cells for the CPU tests: each workload of BENCHMARK.json with its
 configuration cut to a size a test run holds, run through the harness on
-the CPU with the program's plain ``torch`` backend.
+the CPU with the program's plain ``torch`` backend.  The keys that cut a
+configuration come from its generator module (``TINY``), so a new kind of
+graph brings its own test size.
 
 ``OPEN_LOOP`` is one more: the open loop of served queries
 (``bench.loops.open_loop``), which no cell of BENCHMARK.json drives yet.
@@ -19,8 +21,6 @@ for _p in (str(ROOT / "src"), str(ROOT)):
     if _p not in sys.path:
         sys.path.insert(0, _p)
 
-#: per generator, the keys that shrink a configuration to a test's size
-TINY = {"rmat": {"scale": 10}}
 #: a closed loop's pool cut to one batch, so that a window of any length
 #: keeps 12 of a batch's 16 rows and a fault in half of them always shows
 TINY_POOL = {"pool_batches": 1}
@@ -35,6 +35,21 @@ OPEN_END_TO_END = {"name": "query_p95_s", "unit": "s", "better": "lower", "bound
 WORKLOADS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
 
 
+def tiny_keys(generator: str) -> dict:
+    """The keys that shrink a configuration of ``generator`` to a test's
+    size: its module's ``TINY``."""
+    from bench import spec
+
+    module = spec.generator(generator)
+    try:
+        return dict(module.TINY)
+    except AttributeError:
+        raise AttributeError(
+            f"{module.__name__} has no TINY: a generator gives the configuration keys "
+            "that shrink it to a test's size"
+        ) from None
+
+
 def tiny_cell(workload: str):
     from bench import spec
 
@@ -45,7 +60,7 @@ def tiny_cell(workload: str):
         cell.per_layer = [m for m in cell.per_layer if m["moves"] == "setup_s"]
     else:
         cell = spec.load_cell(ROOT, workload)
-    cell.config.update(TINY[cell.config["generator"]])
+    cell.config.update(tiny_keys(cell.config["generator"]))
     if cell.traffic["loop"] == "closed":
         cell.traffic.update(TINY_POOL)
     return cell

@@ -60,7 +60,10 @@ def test_no_file_of_the_benchmark_imports_jax(path):
 
 
 @pytest.mark.parametrize("name", ["reference.py", "check.py", "graphs.py", "traffic.py",
-                                  "roofline.py", "trace.py", "generators/rmat.py"])
+                                  "roofline.py", "trace.py"]
+                         + sorted(p.relative_to(BENCH).as_posix()
+                                  for p in (BENCH / "generators").glob("*.py")
+                                  if p.name != "__init__.py"))
 def test_yardstick_imports_nothing_of_the_program(name):
     assert not {"repro_torch", "repro"} & _imports(BENCH / name)
 
